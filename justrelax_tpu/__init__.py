@@ -1,13 +1,13 @@
-"""justrelax_tpu — a TPU-native pseudo-transient geodynamics framework.
+"""justrelax_tpu — a JAX-native pseudo-transient geodynamics framework.
 
-A from-scratch JAX/XLA/Pallas implementation of matrix-free accelerated
+A from-scratch JAX/XLA implementation of matrix-free accelerated
 pseudo-transient (APT) solvers for visco-elasto-plastic Stokes flow and thermal
 diffusion on staggered Cartesian grids, with WENO5 advection, particle-in-cell
 material transport, and multi-device domain decomposition over a
 ``jax.sharding.Mesh`` (halo exchange via collective permutes).
 
 Capability reference: PTsolvers/JustRelax.jl (see SURVEY.md). This is not a
-port — all kernels are designed for XLA fusion / Pallas TPU execution, state is
+port — all kernels are designed for XLA fusion, state is
 held in immutable pytrees, and iteration loops are ``lax.while_loop`` device
 programs.
 """

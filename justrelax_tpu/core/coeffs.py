@@ -24,23 +24,24 @@ import math
 from typing import Any, Optional, Tuple
 
 import jax.numpy as jnp
-from flax import struct
+
+from justrelax_tpu.core.pytree import dataclass, field
 
 Array = Any
 
 __all__ = ["PTStokesCoeffs", "PTThermalCoeffs"]
 
 
-@struct.dataclass
+@dataclass
 class PTStokesCoeffs:
-    CFL: float = struct.field(pytree_node=False)
-    eps_rel: float = struct.field(pytree_node=False)
-    eps_abs: float = struct.field(pytree_node=False)
-    Re: float = struct.field(pytree_node=False)
-    r: float = struct.field(pytree_node=False)
-    Vpdtau: float = struct.field(pytree_node=False)
-    theta_dtau: float = struct.field(pytree_node=False)
-    etadtau: float = struct.field(pytree_node=False)
+    CFL: float = field(static=True)
+    eps_rel: float = field(static=True)
+    eps_abs: float = field(static=True)
+    Re: float = field(static=True)
+    r: float = field(static=True)
+    Vpdtau: float = field(static=True)
+    theta_dtau: float = field(static=True)
+    etadtau: float = field(static=True)
 
     @classmethod
     def make(
@@ -72,7 +73,7 @@ class PTStokesCoeffs:
         )
 
 
-@struct.dataclass
+@dataclass
 class PTThermalCoeffs:
     """Cellwise PT coefficients for the thermal diffusion solver.
 
@@ -80,10 +81,10 @@ class PTThermalCoeffs:
     centers); scalars are static.
     """
 
-    CFL: float = struct.field(pytree_node=False)
-    eps: float = struct.field(pytree_node=False)
-    max_lxyz: float = struct.field(pytree_node=False)
-    Vpdtau: float = struct.field(pytree_node=False)
+    CFL: float = field(static=True)
+    eps: float = field(static=True)
+    max_lxyz: float = field(static=True)
+    Vpdtau: float = field(static=True)
     theta_r_dtau: Array = None
     dtau_rho: Array = None
 

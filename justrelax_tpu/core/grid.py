@@ -1,6 +1,6 @@
 """Staggered Cartesian grid geometry.
 
-TPU-native equivalent of the reference's ``Geometry`` struct
+JAX-native equivalent of the reference's ``Geometry`` struct
 (/root/reference/src/grid/Grid.jl:28-46): a uniform (for now) staggered grid
 holding cell counts, domain lengths, origin, spacings and the coordinate
 vectors for cell centers, vertices and the ghosted velocity grids.

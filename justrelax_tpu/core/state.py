@@ -1,6 +1,6 @@
 """Immutable pytree state containers for the solvers.
 
-TPU-native equivalents of the reference's mutable field structs
+JAX-native equivalents of the reference's mutable field structs
 (/root/reference/src/types/stokes.jl:161-193, heat_diffusion.jl:1-15,
 constructors at src/types/constructors/{stokes,heat_diffusion}.jl). Staggered
 shapes are identical to the reference (they encode the discretization and the
@@ -17,9 +17,10 @@ test oracle):
 
 3D adds z-analogues (Vz ``(nx+2, ny+2, nz+1)``, shear components yz/xz, ...).
 
-All containers are ``flax.struct`` dataclasses: every field is a JAX array
-leaf, solvers consume a state and return a new one, and ``jax.jit`` treats them
-as pytrees. Use ``state.replace(field=new_value)`` for updates.
+All containers are frozen pytree dataclasses (core/pytree.py): every field
+is a JAX array
+leaf, solvers consume a state and return a new one, and ``jax.jit`` treats
+them as pytrees. Use ``state.replace(field=new_value)`` for updates.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 import jax.numpy as jnp
-from flax import struct
+
+from justrelax_tpu.core.pytree import dataclass
 
 Array = Any
 
@@ -47,7 +49,7 @@ def _zeros(shape, dtype):
     return jnp.zeros(shape, dtype=dtype)
 
 
-@struct.dataclass
+@dataclass
 class Velocity:
     Vx: Array
     Vy: Array
@@ -75,7 +77,7 @@ class Velocity:
         return (self.Vx, self.Vy, self.Vz)
 
 
-@struct.dataclass
+@dataclass
 class Displacement:
     Ux: Array
     Uy: Array
@@ -93,7 +95,7 @@ class Displacement:
         return (self.Ux, self.Uy, self.Uz)
 
 
-@struct.dataclass
+@dataclass
 class Vorticity:
     xy: Array
     yz: Optional[Array] = None
@@ -112,7 +114,7 @@ class Vorticity:
         )
 
 
-@struct.dataclass
+@dataclass
 class Viscosity:
     """η (centers), ηv (vertices), η_vep (centers), ητ (PT preconditioner)."""
 
@@ -132,7 +134,7 @@ class Viscosity:
         )
 
 
-@struct.dataclass
+@dataclass
 class SymmetricTensor:
     """Symmetric (stress/strain-rate) tensor on the staggered grid.
 
@@ -200,7 +202,7 @@ class SymmetricTensor:
         return (self.yz, self.xz, self.xy)
 
 
-@struct.dataclass
+@dataclass
 class Residual:
     RP: Array
     Rx: Array
@@ -225,7 +227,7 @@ class Residual:
         )
 
 
-@struct.dataclass
+@dataclass
 class StokesState:
     """Full Stokes solver state (reference StokesArrays, stokes.jl:161-193)."""
 
@@ -288,7 +290,7 @@ class StokesState:
         return self.P.ndim
 
 
-@struct.dataclass
+@dataclass
 class ThermalState:
     """Thermal solver state (reference ThermalArrays, heat_diffusion.jl:1-15).
 

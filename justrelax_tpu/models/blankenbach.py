@@ -38,7 +38,7 @@ from justrelax_tpu.solvers.thermal import heatdiffusion_PT
 from justrelax_tpu.utils.timestep import compute_dt
 
 
-def run(nx=32, ny=32, nit=10, dtype=None, use_pallas=False):
+def run(nx=32, ny=32, nit=10, dtype=None):
     ni = (nx, ny)
     ly = 1000.0e3
     lx = ly
@@ -102,7 +102,6 @@ def run(nx=32, ny=32, nit=10, dtype=None, use_pallas=False):
             T=T_center,
             iter_max=150_000,
             nout=200,
-            use_pallas=use_pallas,
         )
         dt = float(compute_dt(stokes.V.components, di, dt_diff))
 
@@ -148,7 +147,7 @@ def run(nx=32, ny=32, nit=10, dtype=None, use_pallas=False):
     return Urms_hist, Nu_hist, info, stokes, thermal
 
 
-def run_particles(nx=32, ny=32, nit=10, dtype=None, seed=0):
+def run_particles(nx=32, ny=32, nit=10, dtype=None, seed=0, on_step=None):
     """The reference's ACTUAL transport scheme: particles carry T, relaxed
     toward the grid solution by subgrid diffusion, advected with RK2, and
     interpolated back to centroids (test_Blankenbach.jl:100-260 — per step:
@@ -156,7 +155,9 @@ def run_particles(nx=32, ny=32, nit=10, dtype=None, seed=0):
     subgrid_diffusion_centroid! → advection!/move!/inject! → diagnostics →
     particle2centroid! → thermal.T). Same Urms/Nu goldens as :func:`run`,
     pinning the PIC stack (P2G/G2P, subgrid diffusion, injection) to a
-    reference thermal-convection oracle."""
+    reference thermal-convection oracle. ``on_step(stokes=, info=, pt=,
+    thermal=, thermal_info=, pt_thermal=)``, if given, is called at the end
+    of each step."""
     from justrelax_tpu.particles.particles import (
         advect_rk2,
         centroid2particle,
@@ -235,7 +236,7 @@ def run_particles(nx=32, ny=32, nit=10, dtype=None, seed=0):
             material, T_center, stokes.P, dt, di, geometry.li,
             eps=1.0e-5, CFL=0.99 / math.sqrt(2.1),
         )
-        thermal, _ = heatdiffusion_PT(
+        thermal, thermal_info = heatdiffusion_PT(
             thermal, pt_thermal, thermal_bc, dt, geometry,
             material=material, P=stokes.P, iter_max=10_000, nout=100,
         )
@@ -275,5 +276,8 @@ def run_particles(nx=32, ny=32, nit=10, dtype=None, seed=0):
         T_cc = particle2centroid(pT, particles, geometry)
         T_new = thermal_bcs(thermal.T.at[1:-1, 1:-1].set(T_cc), thermal_bc)
         thermal = thermal.replace(T=T_new)
+        if on_step is not None:
+            on_step(stokes=stokes, info=info, pt=pt_stokes, thermal=thermal,
+                    thermal_info=thermal_info, pt_thermal=pt_thermal)
 
     return Urms_hist, Nu_hist, info, stokes, thermal

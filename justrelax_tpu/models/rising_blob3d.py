@@ -33,8 +33,7 @@ from justrelax_tpu.utils.timestep import compute_dt
 MANTLE, BLOB = 0, 1
 
 
-def run(n=16, nt=4, d_rho=-100.0, eta0=1.0e21, R=0.12, dtype=None, seed=0,
-        use_pallas=False):
+def run(n=16, nt=4, d_rho=-100.0, eta0=1.0e21, R=0.12, dtype=None, seed=0):
     L = 1.0e6  # 1000 km box
     ni = (n, n, n)
     geometry = Geometry(ni, (L, L, L))
@@ -78,7 +77,6 @@ def run(n=16, nt=4, d_rho=-100.0, eta0=1.0e21, R=0.12, dtype=None, seed=0,
         stokes, info = solve_ve_3d(
             stokes, pt, geometry, bc, (zeros, zeros, jnp.asarray(rho * g, dt_f)),
             G, K, jnp.inf, iter_max=20_000, nout=500,
-            use_pallas=use_pallas,
         )
         dt = float(compute_dt(stokes.V.components, geometry.di))
 

@@ -39,23 +39,10 @@ def _circle_phase_ratios(xs, ys, origin, radius):
     return ratios
 
 
-def run(n=32, nt=10, eps_bg=1.0, dtype=None, displacement_driven=False,
-        dilation_angle=0.0, use_pallas=False, dqdtau_alt=0.0,
-        visc_plastic_tau=False):
-    """``displacement_driven=True`` reproduces the strain-increment variant
-    (reference ShearBand2D_strain_increment.jl): the boundary forcing is set
-    as a displacement increment U = V·dt under
-    ``DisplacementBoundaryConditions`` and converted at solve entry — with a
-    fixed dt the two formulations are algebraically identical (see
-    ops/displacement.py). ``dilation_angle`` > 0 activates the volumetric
-    plastic path (ε_vol_pl, EVol_pl) exercised by the reference DPCap test
-    (test_shearband2D_DPCap.jl:186-202)."""
-    from justrelax_tpu.ops.bc import DisplacementBoundaryConditions
-    from justrelax_tpu.ops.displacement import (
-        displacement2velocity,
-        velocity2displacement,
-    )
-
+def setup(n=32, eps_bg=1.0, dtype=None, dilation_angle=0.0, dqdtau_alt=0.0):
+    """The velocity-driven problem at ``n``² cells: the positional arguments
+    ``(stokes, pt_stokes, geometry, flow_bc, material, pr_center, pr_vertex,
+    dt)`` of :func:`solve_vep`, with the initial pure-shear velocity set."""
     ni = (n, n)
     geometry = Geometry(ni, (1.0, 1.0))
     xci, xvi = geometry.xci, geometry.xvi
@@ -98,19 +85,43 @@ def run(n=32, nt=10, eps_bg=1.0, dtype=None, displacement_driven=False,
     yv = jnp.asarray(xvi[1], dt_f)
     Vx = jnp.broadcast_to((eps_bg * xv)[:, None], (n + 1, n + 2))
     Vy = jnp.broadcast_to((-eps_bg * yv)[None, :], (n + 2, n + 1))
+    flow_bc = VelocityBoundaryConditions(
+        free_slip=Faces(left=True, right=True, top=True, bot=True)
+    )
+    Vx, Vy = flow_bcs((Vx, Vy), flow_bc)
+    stokes = stokes.replace(V=stokes.V.replace(Vx=Vx, Vy=Vy))
+    return (stokes, pt_stokes, geometry, flow_bc, material, pr_center,
+            pr_vertex, dt)
+
+
+def run(n=32, nt=10, eps_bg=1.0, dtype=None, displacement_driven=False,
+        dilation_angle=0.0, dqdtau_alt=0.0,
+        visc_plastic_tau=False, on_step=None):
+    """``displacement_driven=True`` reproduces the strain-increment variant
+    (reference ShearBand2D_strain_increment.jl): the boundary forcing is set
+    as a displacement increment U = V·dt under
+    ``DisplacementBoundaryConditions`` and converted at solve entry — with a
+    fixed dt the two formulations are algebraically identical (see
+    ops/displacement.py). ``dilation_angle`` > 0 activates the volumetric
+    plastic path (ε_vol_pl, EVol_pl) exercised by the reference DPCap test
+    (test_shearband2D_DPCap.jl:186-202). ``on_step(stokes=, info=, pt=)``,
+    if given, is called after each solve."""
+    from justrelax_tpu.ops.bc import DisplacementBoundaryConditions
+    from justrelax_tpu.ops.displacement import (
+        displacement2velocity,
+        velocity2displacement,
+    )
+
+    (stokes, pt_stokes, geometry, flow_bc, material, pr_center, pr_vertex,
+     dt) = setup(n, eps_bg, dtype, dilation_angle, dqdtau_alt)
+    eta0, G0 = 1.0, 1.0  # as in setup()
     if displacement_driven:
         flow_bc = DisplacementBoundaryConditions(
             free_slip=Faces(left=True, right=True, top=True, bot=True)
         )
-        Ux, Uy = flow_bcs((Vx * dt, Vy * dt), flow_bc)
+        Ux, Uy = flow_bcs((stokes.V.Vx * dt, stokes.V.Vy * dt), flow_bc)
         stokes = stokes.replace(U=stokes.U.replace(Ux=Ux, Uy=Uy))
         stokes = displacement2velocity(stokes, dt, flow_bc)
-    else:
-        flow_bc = VelocityBoundaryConditions(
-            free_slip=Faces(left=True, right=True, top=True, bot=True)
-        )
-        Vx, Vy = flow_bcs((Vx, Vy), flow_bc)
-        stokes = stokes.replace(V=stokes.V.replace(Vx=Vx, Vy=Vy))
 
     t = 0.0
     tau_max_hist, sol_hist, tt = [], [], []
@@ -127,9 +138,10 @@ def run(n=32, nt=10, eps_bg=1.0, dtype=None, displacement_driven=False,
             dt,
             iter_max=50_000,
             nout=100,
-            use_pallas=use_pallas,
             visc_plastic_tau=visc_plastic_tau,
         )
+        if on_step is not None:
+            on_step(stokes=stokes, info=info, pt=pt_stokes)
         if displacement_driven:
             stokes = velocity2displacement(stokes, dt)
         tau_max_hist.append(float(stokes.tau.xx.max()))

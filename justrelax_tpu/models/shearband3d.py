@@ -26,9 +26,17 @@ from justrelax_tpu.rheology.phases import phase_ratios_from_field
 from justrelax_tpu.solvers.stokes3d_vep import solve_vep_3d
 
 
-def run(n=16, nt=8, eps_bg=1.0, dtype=None):
-    ni = (n, n, n)
-    geometry = Geometry(ni, (1.0, 1.0, 1.0))
+def setup(n=16, eps_bg=1.0, dtype=None):
+    """The problem at ``n``³ cells: the positional arguments ``(stokes,
+    pt_stokes, geometry, flow_bc, material, pr_center, pr_edges, dt)`` of
+    :func:`solve_vep_3d`, with the initial pure-shear velocity set.
+
+    ``n = (nx, ny, nz)`` gives a box of ``(1, ny/nx, nz/nx)`` with cubic
+    cells and the inclusion at its centre (a domain decomposed over an
+    uneven device mesh)."""
+    ni = (n,) * 3 if isinstance(n, int) else tuple(n)
+    li = tuple(k / ni[0] for k in ni)
+    geometry = Geometry(ni, li)
     tau_y, phi = 1.6, 30.0
     eta0, G0 = 1.0, 1.0
     Gi = G0 / 2.0
@@ -48,7 +56,8 @@ def run(n=16, nt=8, eps_bg=1.0, dtype=None):
 
     # spherical inclusion phase field at centers → all staggered ratios
     X, Y, Z = np.meshgrid(*[np.asarray(c) for c in geometry.xci], indexing="ij")
-    inside = (X - 0.5) ** 2 + (Y - 0.5) ** 2 + (Z - 0.5) ** 2 <= 0.1**2
+    cx, cy, cz = (0.5 * l for l in li)
+    inside = (X - cx) ** 2 + (Y - cy) ** 2 + (Z - cz) ** 2 <= 0.1**2
     pr = phase_ratios_from_field(jnp.asarray(inside.astype(int)), 2)
 
     stokes = StokesState.make(ni, dtype=dtype)
@@ -58,9 +67,12 @@ def run(n=16, nt=8, eps_bg=1.0, dtype=None):
 
     xv = jnp.asarray(geometry.xvi[0], dt_f)
     zv = jnp.asarray(geometry.xvi[2], dt_f)
-    Vx = jnp.broadcast_to((eps_bg * xv)[:, None, None], (n + 1, n + 2, n + 2))
-    Vy = jnp.zeros((n + 2, n + 1, n + 2), dt_f)
-    Vz = jnp.broadcast_to((-eps_bg * zv)[None, None, :], (n + 2, n + 2, n + 1))
+    nx, ny, nz = ni
+    Vx = jnp.broadcast_to((eps_bg * xv)[:, None, None],
+                          (nx + 1, ny + 2, nz + 2))
+    Vy = jnp.zeros((nx + 2, ny + 1, nz + 2), dt_f)
+    Vz = jnp.broadcast_to((-eps_bg * zv)[None, None, :],
+                          (nx + 2, ny + 2, nz + 1))
     bc = VelocityBoundaryConditions(
         free_slip=Faces(left=True, right=True, top=True, bot=True,
                         front=True, back=True)
@@ -72,17 +84,28 @@ def run(n=16, nt=8, eps_bg=1.0, dtype=None):
         geometry.li, geometry.di, CFL=0.75 / math.sqrt(3.1),
         eps_rel=1.0e-6, eps_abs=1.0e-6,
     )
+    return (stokes, pt, geometry, bc, material, pr.center,
+            (pr.edge_yz, pr.edge_xz, pr.edge_xy), dt)
+
+
+def run(n=16, nt=8, eps_bg=1.0, dtype=None, on_step=None):
+    """``nt`` loading steps; ``on_step(stokes=, info=, pt=)``, if given, is
+    called after each solve."""
+    stokes, pt, geometry, bc, material, pr_c, pr_e, dt = setup(
+        n, eps_bg, dtype)
+    eta0, G0 = 1.0, 1.0  # as in setup()
 
     t = 0.0
     tau_hist, sol_hist = [], []
     info = None
     for _ in range(nt):
         stokes, info = solve_vep_3d(
-            stokes, pt, geometry, bc, material, pr.center,
-            (pr.edge_yz, pr.edge_xz, pr.edge_xy), dt,
+            stokes, pt, geometry, bc, material, pr_c, pr_e, dt,
             iter_max=30_000, iter_min=100, nout=200,
             viscosity_relaxation=1.0,
         )
+        if on_step is not None:
+            on_step(stokes=stokes, info=info, pt=pt)
         t += dt
         tau_II = tensor_invariant_staggered_3d(
             stokes.tau.xx, stokes.tau.yy, stokes.tau.zz,

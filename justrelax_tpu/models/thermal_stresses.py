@@ -1,6 +1,6 @@
 """Thermal stresses around a magma chamber (Kiss et al. 2023 physics).
 
-Simplified TPU-native counterpart of the reference miniapp
+Simplified JAX-native counterpart of the reference miniapp
 miniapps/benchmarks/thermal_stress/Thermal_Stress_Magma_Chamber_nondim.jl:
 a hot circular magma chamber inside compressible visco-elastic rock. Each
 step: PT thermal diffusion → ΔT = T − Told → melt fraction (Caricchi) →

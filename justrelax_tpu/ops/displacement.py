@@ -3,11 +3,11 @@
 Reference: src/types/displacement.jl:1-70 and the ``strain_increment=true``
 driver branch (Stokes2D.jl:659-712). With a fixed timestep the displacement
 formulation is algebraically identical to the velocity one — U = V·dt,
-Δε = ε·dt — so the TPU-native solvers take one set of arrays and these
+Δε = ε·dt — so the JAX-native solvers take one set of arrays and these
 conversions sit at the boundary: drive the BCs in displacement
 (``DisplacementBoundaryConditions``), convert to velocity at solve entry,
 convert back for output. XLA fuses the scalings, so keeping both array
-families live (as the reference does) would only cost HBM traffic.
+families live (as the reference does) would only cost memory traffic.
 """
 
 from __future__ import annotations

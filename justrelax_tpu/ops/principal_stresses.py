@@ -3,7 +3,7 @@
 2D: closed-form 2×2 symmetric eigendecomposition (σ1/σ2 scaled eigenvector
 pairs, PrincipalStresses.jl:16-40). 3D: batched symmetric eigensolve of the
 3×3 deviatoric stress tensors (the reference uses a Hessenberg-QR iteration;
-XLA's ``eigh`` is the TPU-native equivalent).
+XLA's ``eigh`` is the JAX-native equivalent).
 """
 
 from __future__ import annotations

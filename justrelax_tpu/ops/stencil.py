@@ -1,6 +1,6 @@
 """Vectorized staggered-grid stencil primitives.
 
-TPU-native counterpart of the reference's per-index mini-kernels
+JAX-native counterpart of the reference's per-index mini-kernels
 (/root/reference/src/MiniKernels.jl). Instead of scalar index arithmetic inside
 a launched kernel, each primitive is a whole-array slice expression that XLA
 fuses into the surrounding computation (and that Pallas kernels reuse
@@ -185,9 +185,8 @@ def jax_slice(A, axis, start, stop):
 
 
 # --- interior-slab updates (pad+add / mask+set idiom) -----------------------
-# A ``.at[1:-1, ...].add(inc)`` lowers to a misaligned dynamic-update-slice,
-# which on TPU costs ~3x the entire fused PT iteration (measured on v5e,
-# 126^3: 2202 -> 728 us/iter after conversion). A zero-pad fuses into the
+# A ``.at[1:-1, ...].add(inc)`` lowers to a dynamic-update-slice that XLA
+# may not fuse with the producer of ``inc``. A zero-pad fuses into the
 # elementwise add; a broadcasted-iota mask fuses into a select.
 
 

@@ -150,9 +150,8 @@ def compute_tau_ve(txx, tyy, txy, txx_o, tyy_o, txy_o, exx, eyy, exy, eta, G,
     inc = _stress_increment(
         txy[1:-1, 1:-1], txy_o[1:-1, 1:-1], eta_v, exy[1:-1, 1:-1], _Gdt_v, dtau_r_v
     )
-    # pad+add instead of .at[interior].add: misaligned-slab dynamic-update-
-    # slice is the dominant cost of the PT iteration on TPU (measured 3x on
-    # v5e in 3D); a zero-pad fuses into the elementwise add.
+    # pad+add instead of .at[interior].add: a zero-pad fuses into the
+    # elementwise add (see ops/stencil.py::interior_add).
     txy = txy + jnp.pad(inc, ((1, 1), (1, 1)))
     return txx, tyy, txy
 

@@ -119,8 +119,7 @@ def _pad_edge2(A, ax0, ax1):
 
 def _pad2(A, ax0, ax1):
     """Zero-pad one layer on both sides of two axes (pad+add idiom: a
-    misaligned-slab ``.at[1:-1,...].add`` lowers to a dynamic-update-slice
-    that costs ~3x the whole PT iteration on TPU; a zero-pad fuses)."""
+    zero-pad fuses into the add, see ops/stencil.py::interior_add)."""
     pads = [(0, 0)] * 3
     pads[ax0] = (1, 1)
     pads[ax1] = (1, 1)
@@ -237,7 +236,7 @@ def compute_V_3d(Vx, Vy, Vz, P, tau, fx, fy, fz, eta_tau, etadtau, inv_di,
     etax = 0.5 * (eta_tau[1:, :, :] + eta_tau[:-1, :, :])
     etay = 0.5 * (eta_tau[:, 1:, :] + eta_tau[:, :-1, :])
     etaz = 0.5 * (eta_tau[:, :, 1:] + eta_tau[:, :, :-1])
-    # pad+add instead of .at[interior].add — see _pad2 (3x on v5e)
+    # pad+add instead of .at[interior].add — see _pad2
     p1 = ((1, 1), (1, 1), (1, 1))
     Vx = Vx + jnp.pad(Rx * etadtau / etax, p1)
     Vy = Vy + jnp.pad(Ry * etadtau / etay, p1)

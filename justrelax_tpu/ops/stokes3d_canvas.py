@@ -1,17 +1,14 @@
 """Collocated-canvas 3D VE Stokes iteration (XLA roll+mask formulation).
 
-Why this exists: the slice/pad 3D iteration (ops/stokes3d.py, the round-1
-production path) compiles to ~46 materialized intermediates on v5e — 331 MB
-of HLO writes per iteration against ~80 MB of necessary carry writes — so it
-runs at wire speed on 4× the necessary traffic (0.64× HBM peak, BENCH_r02).
-The mixed staggered shapes (each offset slice is a different-shaped operand)
-fragment XLA's fusion clusters. Here every field is embedded in one
-(nx+2, ny+2, nz+2) canvas, neighbor access is ``jnp.roll`` with static ±1
-shifts, and staggered-subgrid ownership is ``broadcasted_iota`` band masks —
-the same formulation the 2D Pallas chunk kernel proved on the v5e Mosaic
-toolchain (ops/pallas_stokes.py), but run as plain XLA: uniform shapes give
-the fusion heuristics one elementwise graph, and all chunk-invariant
-coefficients are hoisted out of the ``fori_loop`` by LICM.
+Why this exists: in the slice/pad 3D iteration (ops/stokes3d.py) the mixed
+staggered shapes (each offset slice is a different-shaped operand) can
+fragment XLA's fusion clusters and materialize intermediates. Here every
+field is embedded in one (nx+2, ny+2, nz+2) canvas, neighbor access is a
+static ±1 shift, and staggered-subgrid ownership is ``broadcasted_iota``
+band masks: uniform shapes give the fusion heuristics one elementwise graph,
+and all chunk-invariant coefficients are hoisted out of the ``fori_loop``.
+Which layout is faster on a given device is a benchmark question (the
+``ve3d`` and ``ve3d_canvas`` bench families).
 
 VE/compressible physics enters through the same chunk-invariant COEFFICIENT
 form as the 2D kernels:
@@ -24,8 +21,8 @@ with the viscous incompressible limit c1=1, c2=0, c3=ητ·r/θ, a=1−dτ_r,
 b=2η·dτ_r, d=0 (coefficients that are statically trivial are omitted from
 the expression entirely).
 
-Canvas collocation matches ops/pallas_stokes3d.py (serial equivalence of the
-body is proven against the op composition in tests/test_stokes3d_canvas.py):
+Canvas collocation (serial equivalence of the body is proven against the op
+composition in tests/test_stokes3d_canvas.py):
   cell (i,j,k)        -> (i+1, j+1, k+1)   P, τxx, τyy, τzz + cell coeffs
   Vx face i           -> a=i   (b=j+1, c=k+1; transverse ghosts included)
   Vy face j           -> b=j   (a=i+1, c=k+1)
@@ -53,11 +50,7 @@ def _embed(A, pads):
 
 
 def pack_carry(Vx, Vy, Vz, P, txx, tyy, tzz, tyz, txz, txy):
-    """Staggered arrays → stacked carry canvas (10, nx+2, ny+2, nz+2).
-
-    (Moved here from the retired ops/pallas_stokes3d.py strip/plane kernels
-    — see docs/performance.md "3D kernel measurement history" for why those
-    designs were dropped in favor of pallas_stokes3d_blocked.py.)"""
+    """Staggered arrays → stacked carry canvas (10, nx+2, ny+2, nz+2)."""
     return jnp.stack([
         _embed(Vx, ((0, 1), (0, 0), (0, 0))),
         _embed(Vy, ((0, 0), (0, 1), (0, 0))),
@@ -106,14 +99,10 @@ __all__ = [
 # op. The two differ only in canvas slots that are never consumed (every
 # shifted read is inside jnp.where(mask, ...) whose mask excludes
 # wrap-sourced slots), so iteration results are BITWISE identical
-# (tests/test_stokes3d_canvas.py). They compile very differently on XLA:TPU:
-# concatenate forces its operands to materialize while pad fuses — measured
-# 2.5x on the 3D VE canvas iteration (490 -> 181 us/iter at 126^3 f32 on
-# v5e, docs/performance.md). "slice" is therefore the XLA-path choice;
-# Mosaic (Pallas) is the opposite — it miscompiles pad/concat formulations
-# but lowers roll natively (ops/pallas_stokes.py module docstring) — so the
-# Pallas-blocked callers keep "roll". Select via the `shift` parameter of
-# the iteration/chunk entry points.
+# (tests/test_stokes3d_canvas.py). A concatenate forces its operands to
+# materialize while a pad can fuse into its consumer, so "slice" is the
+# default. Select via the `shift` parameter of the iteration/chunk entry
+# points.
 def _sm1(A, ax):
     return jnp.roll(A, -1, axis=ax)
 
@@ -146,8 +135,8 @@ def shift_fns(shift: str):
     return _sm1, _sp1
 
 
-def _band(shape, axis, lo, hi, offset=0):
-    i = lax.broadcasted_iota(jnp.int32, shape, axis) + offset
+def _band(shape, axis, lo, hi):
+    i = lax.broadcasted_iota(jnp.int32, shape, axis)
     return (i >= lo) & (i <= hi)
 
 
@@ -229,7 +218,7 @@ def ve3d_canvas_coefficients(
         return CanvasCoeffs3D(c1, c2, c3, a_c, b_c, d_c, a_e, b_e, d_e,
                               inv_eta, f)
 
-    # general VE / compressible form (2D twin: pallas_stokes._ve_coefficients)
+    # general VE / compressible form
     if dt is None:
         dt = jnp.inf
     K = jnp.full(ni, jnp.inf, dtype) if K is None else K
@@ -276,16 +265,13 @@ def ve3d_canvas_coefficients(
 
 
 def iteration3d_canvas(carry, co: CanvasCoeffs3D, inv_di, *,
-                       nx, ny, nz, free_slip=True, x_off=0, y_off=0,
-                       shift="roll"):
+                       nx, ny, nz, free_slip=True, shift="slice"):
     """One fused 3D VE PT iteration on the 10 collocated canvases.
 
     Equivalent to compute_grad_V_3d → compute_P → compute_strain_rate_3d →
     compute_tau_ve_3d → compute_V_3d → flow_bcs(free-slip) on the staggered
-    arrays (ops/stokes3d.py). ``x_off``/``y_off`` map local canvas rows to
-    global rows along axes 0/1 for windowed (Pallas-blocked) execution.
-    ``shift`` picks the neighbor-shift lowering (module docstring):
-    "slice" for XLA callers, "roll" for Pallas-blocked callers (Mosaic).
+    arrays (ops/stokes3d.py). ``shift`` picks the neighbor-shift lowering
+    (see the comment above :func:`shift_fns`).
     """
     _sm1, _sp1 = shift_fns(shift)
     Vx, Vy, Vz, P, txx, tyy, tzz, tyz, txz, txy = carry
@@ -294,10 +280,10 @@ def iteration3d_canvas(carry, co: CanvasCoeffs3D, inv_di, *,
     third = 1.0 / 3.0
 
     def xb(lo, hi):
-        return _band(shape, 0, lo, hi, offset=x_off)
+        return _band(shape, 0, lo, hi)
 
     def yb(lo, hi):
-        return _band(shape, 1, lo, hi, offset=y_off)
+        return _band(shape, 1, lo, hi)
 
     def zb(lo, hi):
         return _band(shape, 2, lo, hi)
@@ -371,7 +357,8 @@ def iteration3d_canvas(carry, co: CanvasCoeffs3D, inv_di, *,
 
     if free_slip:
         # tangential mirrors, serial .at[].set order (ops/bc.py: front, back,
-        # top, bot, left, right) — proven against flow_bcs in the v1 kernel
+        # top, bot, left, right) — proven against flow_bcs in
+        # tests/test_stokes3d_canvas.py
         front = yb(0, 0)
         back = yb(ny + 1, ny + 1)
         Vx = jnp.where(front, _sm1(Vx, 1), Vx)
@@ -413,14 +400,14 @@ def stokes3d_chunk_canvas(carry, co: CanvasCoeffs3D, inv_di, nout, *,
 
 
 class LeanConsts3D(NamedTuple):
-    """Minimal HBM-resident constants for the lean viscous canvas chunk.
+    """Minimal device-resident constants for the lean viscous canvas chunk.
 
     The precomputed viscous :class:`CanvasCoeffs3D` streams 11 coefficient
-    canvases from HBM per iteration (c3, b_c, b_e×3, inv_eta×3, f×3 — 92 MB
-    at 126³ f32, 35% of the iteration's traffic). Here only the PHYSICS
-    canvases are stored — ``eta``, ``eta_tau``, nonzero body-force cells —
-    and every coefficient is re-derived inside the loop body (a handful of
-    VPU ops per cell; the iteration is memory-bound, so recompute is free).
+    canvases from device memory per iteration (c3, b_c, b_e×3, inv_eta×3,
+    f×3). Here only the PHYSICS canvases are stored — ``eta``, ``eta_tau``,
+    nonzero body-force cells — and every coefficient is re-derived inside
+    the loop body (a handful of flops per cell for a memory-bound
+    iteration).
     """
 
     eta: Array                    # cell canvas, edge-replicate padded
@@ -447,7 +434,7 @@ def _derive_coeffs_lean(lc: LeanConsts3D, P, r, theta_dtau, etadtau,
     """Re-derive the viscous coefficient canvases INSIDE the loop body.
 
     XLA's WhileLoopInvariantCodeMotion would hoist these (loop-invariant)
-    derivations out of the ``fori_loop`` and materialize them in HBM —
+    derivations out of the ``fori_loop`` and materialize them in device memory —
     silently restoring the precomputed path's traffic. The derivation is
     therefore threaded through a carry-dependent unit scalar ``s`` built
     from a NaN-sensitive self-comparison of the pressure canvas: XLA cannot

@@ -63,12 +63,9 @@ class VEPParams3D(NamedTuple):
     interpolants of the solve-frozen old stress τ_o) for
     :func:`update_stresses_center_edges_3d`.
 
-    Two measured motivations (v5e, 126³ f32, scripts/probe_vep3d.py):
-    the blends involve (..., nphase) arrays whose trailing tiny dimension
-    tiles terribly on TPU, and the three edge passes dominate the iteration
-    (~1150 µs/family vs ~560 µs for the whole center pass) largely through
-    per-iteration interpolation of solve-frozen fields — so both are
-    evaluated ONCE per solve."""
+    The blends involve (..., nphase) arrays with a tiny trailing dimension,
+    and the edge passes would otherwise re-interpolate solve-frozen fields
+    every iteration — so both are evaluated ONCE per solve."""
 
     ppc: Any          # PlasticParams at centers
     G_c: Any
@@ -259,18 +256,12 @@ def update_stresses_center_edges_3d(
     moves: StaggeredMoves | None = None,
     params: "VEPParams3D | None" = None,
     probe_passes=None,
-    edge_families=None,
 ) -> VEPStressResult3D:
-    """``probe_passes`` is a PERF-BISECT hook (scripts/probe_vep3d.py):
-    ``("center",)`` skips the three edge passes, ``("edges",)`` skips the
+    """``probe_passes`` splits the iteration's time by pass (the ``vep3d``
+    bench family's ``probe_passes``): ``("center",)`` skips the three edge passes, ``("edges",)`` skips the
     center pass — each skipped pass degenerates to a passthrough with the
     same output shapes so the iteration frame (traffic) is unchanged while
-    its compute is removed. Physics callers leave it None.
-
-    ``edge_families`` restricts the edge passes to a subset of family
-    indices (0=yz, 1=xz, 2=xy); unselected families pass through unchanged.
-    Used by the per-family Pallas split kernel (ops/pallas_vep3d_edges.py)
-    so each kernel instance carries only one family's live set."""
+    its compute is removed. Physics callers leave it None."""
     ni = Pr.shape
     names = ("yz", "xz", "xy")
     if moves is None:
@@ -278,19 +269,12 @@ def update_stresses_center_edges_3d(
     other_to_edge = moves.other_to_edge
     do_edges = probe_passes is None or "edges" in probe_passes
     do_center = probe_passes is None or "center" in probe_passes
-    fam_sel = tuple(range(3)) if edge_families is None else \
-        tuple(edge_families)
 
     # ---------------- edge passes ------------------------------------------
     new_tau_e = []
     new_lam_e = []
     eps_pl_e = []
     for k, name in enumerate(names if do_edges else ()):
-        if k not in fam_sel:
-            new_tau_e.append(tau_e3[k])
-            new_lam_e.append(lam_e3[k])
-            eps_pl_e.append(jnp.zeros_like(tau_e3[k]))
-            continue
         a, b = _EDGE_AXES[name]
         Pv = moves.center_to_edge(Pr, a, b)
         eta_e = moves.harm_center_to_edge(eta, a, b)

@@ -1,13 +1,10 @@
 """Collocated-canvas 3D VEP iteration (XLA roll+mask formulation).
 
-Why this exists: the slice/pad 3D VEP iteration (solvers/stokes3d_vep.py
-one_iteration over ops/stokes3d_vep.py) is the slowest row on the bench
-table — 136 GB/s = 0.17× HBM peak, stream-fraction 0.14 (BENCH r04
-validation run, docs/performance.md) — because the fused center+edges
-return mapping interpolates the full 6-component stress/strain state onto
-three edge lattices with ~60 clamped moves of MIXED staggered shapes,
-fragmenting XLA's fusion clusters exactly like the 3D VE slice path did
-(0.64×) but much worse. Here every field lives in one (nx+2, ny+2, nz+2)
+Why this exists: in the slice/pad 3D VEP iteration (solvers/stokes3d_vep.py
+one_iteration over ops/stokes3d_vep.py) the fused center+edges return
+mapping interpolates the full 6-component stress/strain state onto three
+edge lattices with ~60 clamped moves of MIXED staggered shapes, which can
+fragment XLA's fusion clusters. Here every field lives in one (nx+2, ny+2, nz+2)
 canvas (collocation identical to ops/stokes3d_canvas.py), every clamped
 move is a static roll plus a boundary select, and the whole iteration is a
 uniform-shape elementwise graph.
@@ -26,16 +23,14 @@ through a canvas-collocated :class:`StaggeredMoves`:
 
 Every phase blend is PRECOMPUTED at consts-build time (plastic parameters,
 moduli, the ρ(T,P)·g affine coefficients, the collapsed power-law viscosity
-target) so no (..., nphase) trailing-tiny-dim math — which tiles terribly
-on TPU — ever enters the loop; loop-invariant derived quantities (the
-clamped τ_o interpolants) are left to XLA's LICM, which materializes them
-once before the loop. The first design instead streamed raw phase ratios
-and re-blended per iteration behind an anti-LICM carry scalar: measured
-45 ms/iter at 126³ f32 on v5e — 10× WORSE than the slice path it meant to
-replace (docs/performance.md, 3D VEP record). Precomputed-consts beat
-recompute-in-body on this hardware in every measurement this round.
+target) so no (..., nphase) trailing-tiny-dim math enters the loop;
+loop-invariant derived quantities (the clamped τ_o interpolants) are hoisted
+at consts-build time too.
 
-Supported configuration (guarded by the solver dispatch): uniform grid,
+Whether this layout or the slice/pad one is faster on a given device is a
+benchmark question (the ``vep3d`` and ``vep3d_canvas`` bench families).
+
+Supported configuration: uniform grid,
 all-free-slip BCs, no variational mask (phi), default solver options, and
 a creep table that is linear or collapses to a shared-exponent power law —
 the ShearBand3D / bench ``vep3d`` family configuration.
@@ -111,35 +106,28 @@ def extract_edge(C, fam):
     return C[sl]
 
 
-def _ghost_refresh(A, ax, n, sm1, sp1, off=0):
+def _ghost_refresh(A, ax, n, sm1, sp1):
     """Replicate the interior boundary values into the ghost slabs of a
     CENTER-collocated canvas axis (slots 1..n interior): slot 0 ← slot 1,
-    slot n+1 ← slot n. Equivalent to the reference's clamped indexing.
-    ``off`` maps local rows to global rows along ``ax`` (windowed/Pallas
-    execution, cf. stokes3d_canvas.iteration3d_canvas's x_off)."""
-    lo = _band(A.shape[:3], ax, 0, 0, offset=off)
-    hi = _band(A.shape[:3], ax, n + 1, n + 1, offset=off)
+    slot n+1 ← slot n. Equivalent to the reference's clamped indexing."""
+    lo = _band(A.shape[:3], ax, 0, 0)
+    hi = _band(A.shape[:3], ax, n + 1, n + 1)
     if A.ndim > 3:
         lo, hi = lo[..., None], hi[..., None]
     return jnp.where(lo, sm1(A, ax), jnp.where(hi, sp1(A, ax), A))
 
 
-def canvas_moves(ni, shift="slice", x_off=0, y_off=0) -> StaggeredMoves:
+def canvas_moves(ni, shift="slice") -> StaggeredMoves:
     """Canvas-collocated clamped staggered moves (≙ serial_moves, but every
     array is an (nx+2, ny+2, nz+2) canvas; proven equal in
-    tests/test_vep3d_canvas.py). ``x_off``/``y_off`` map local canvas rows
-    to global rows along axes 0/1 for windowed (Pallas-blocked) execution."""
+    tests/test_vep3d_canvas.py)."""
     n_ax = ni
     _sm1, _sp1 = shift_fns(shift)
-    _offs = (x_off, y_off, 0)
-
-    def off(ax):
-        return _offs[ax]
 
     def center_to_edge(A, a, b):
         out = A
         for ax in (a, b):
-            out = _ghost_refresh(out, ax, n_ax[ax], _sm1, _sp1, off(ax))
+            out = _ghost_refresh(out, ax, n_ax[ax], _sm1, _sp1)
             out = 0.5 * (out + _sm1(out, ax))
         return out
 
@@ -158,16 +146,15 @@ def canvas_moves(ni, shift="slice", x_off=0, y_off=0) -> StaggeredMoves:
         # _pair_fwd (center-count clamp: the outermost staggered face along
         # src_only is never read): replace slot n with slot n-1, then
         # backward pair-average onto center slots 1..n
-        last = _band(A.shape, src_only, n, n, offset=off(src_only))
+        last = _band(A.shape, src_only, n, n)
         Ax = jnp.where(last, _sp1(A, src_only), A)
         out = 0.5 * (_sp1(Ax, src_only) + Ax)
         # _pair_back along the destination's extra staggered axis
-        out = _ghost_refresh(out, dst_only, n_ax[dst_only], _sm1, _sp1,
-                             off(dst_only))
+        out = _ghost_refresh(out, dst_only, n_ax[dst_only], _sm1, _sp1)
         out = 0.5 * (out + _sm1(out, dst_only))
         # _idx_clamp along the shared staggered axis (slot n ← slot n-1)
         ns = n_ax[shared]
-        lasts = _band(out.shape, shared, ns, ns, offset=off(shared))
+        lasts = _band(out.shape, shared, ns, ns)
         return jnp.where(lasts, _sp1(out, shared), out)
 
     def edge_to_center(A, ax0, ax1):
@@ -182,14 +169,13 @@ def canvas_moves(ni, shift="slice", x_off=0, y_off=0) -> StaggeredMoves:
     )
 
 
-def _maxloc_canvas(A, ni, sm1, sp1, x_off=0, y_off=0):
+def _maxloc_canvas(A, ni, sm1, sp1):
     """maxloc(window=1) with clamped boundaries on a center canvas
     (ops/stencil.py::maxloc semantics: separable per-axis 3-point max with
     edge clamping ≡ ghost replication)."""
     B = A
-    offs = (x_off, y_off, 0)
     for ax in range(3):
-        B = _ghost_refresh(B, ax, ni[ax], sm1, sp1, offs[ax])
+        B = _ghost_refresh(B, ax, ni[ax], sm1, sp1)
         B = jnp.maximum(B, jnp.maximum(sm1(B, ax), sp1(B, ax)))
     return B
 
@@ -197,14 +183,8 @@ def _maxloc_canvas(A, ni, sm1, sp1, x_off=0, y_off=0):
 class VEP3DCanvasConsts(NamedTuple):
     """Loop-invariant canvases, ALL phase blending done at build time.
 
-    The first canvas-VEP design streamed raw phase ratios and re-blended
-    per iteration behind an anti-LICM scalar; measured 45 ms/iter at 126³
-    on v5e — 10× WORSE than the slice path — because the (..., nphase)
-    trailing-tiny-dim math tiles terribly on TPU and the in-body
-    derivations materialized anyway. This version precomputes every
-    phase-blended quantity per lattice (the 2D VEP chunk's const strategy,
-    ops/pallas_stokes_vep.py) and lets LICM hoist the loop-invariant τ_o
-    interpolants; only 3D canvases ever enter the loop."""
+    Every phase-blended quantity is precomputed per lattice, as are the
+    τ_o edge interpolants; only 3D canvases ever enter the loop."""
 
     params: Any               # VEPParams3D of canvases (plastic + moduli)
     tau_o_c: tuple            # 6 center canvases
@@ -232,25 +212,13 @@ class VEP3DCanvasCarry(NamedTuple):
 
 def vep3d_canvas_consts(material, tau_o_c6, tau_o_e3, EII_pl, P0, Q,
                         phase_ratios_center, phase_ratios_edges,
-                        T=None, visc_m="auto", hoist_tau_o=True,
-                        scalar_plastic=False,
-                        scalar_K=False) -> VEP3DCanvasConsts:
+                        T=None, visc_m="auto") -> VEP3DCanvasConsts:
     """Build the loop-invariant canvases (one-time cost per solve).
 
     ``visc_m`` is the shared power-law exponent minus one of the creep
     table (``rheology.viscosity.shared_powerlaw_exponent``), ``None`` for a
     linear table, or "auto" to resolve from a CONCRETE material (raises
-    under jit tracing — pass it explicitly there, mirroring the 2D
-    ``pallas_visc_m`` escape hatch).
-
-    ``hoist_tau_o=False`` keeps the τ_o edge interpolants in-loop (the
-    Pallas blocked kernel re-derives them in VMEM where compute is free and
-    18 canvases of DMA are not). ``scalar_plastic=True`` collapses the
-    plastic-parameter blends to 0-d scalars via a one-hot evaluation —
-    exact only when plasticity is phase-uniform with softening off
-    (``pallas_stokes3d_vep_blocked.vep3d_blocked_supported`` guards it).
-    ``scalar_K=True`` likewise collapses the bulk-modulus blends (guard:
-    Kb phase-uniform) — 4 fewer canvases of kernel DMA and VMEM."""
+    under jit tracing — pass it explicitly there)."""
     from justrelax_tpu.ops.stokes3d_vep import VEPParams3D
     from justrelax_tpu.rheology.materials import (
         get_bulk_modulus,
@@ -272,39 +240,18 @@ def vep3d_canvas_consts(material, tau_o_c6, tau_o_e3, EII_pl, P0, Q,
     T_c = None if T is None else embed_center(T, mode="edge")
     moves = canvas_moves(EII_pl.shape)
 
-    if scalar_plastic:
-        # one-hot evaluation: with phase-uniform plasticity (guarded by the
-        # caller) any one-hot ratio reproduces the blend exactly, so the 9
-        # PlasticParams fields collapse to 0-d scalars (SMEM in the kernel)
-        nphase = _as_stack(material).params.eta0.shape[0]
-        onehot = jnp.zeros((1, nphase)).at[0, 0].set(1.0)
-        pp_s = plastic_params_phase(material, jnp.zeros((1,)), onehot)
-        pp_s = type(pp_s)(*(v[0] for v in pp_s))
-        ppc = pp_s
-    else:
-        ppc = plastic_params_phase(material, EII_c, pr_cc)
-    if scalar_K:
-        # one-hot collapse (guard: Kb phase-uniform)
-        nph = _as_stack(material).params.eta0.shape[0]
-        oh = jnp.zeros((1, nph)).at[0, 0].set(1.0)
-        K_scalar = get_bulk_modulus(material, oh)[0]
+    ppc = plastic_params_phase(material, EII_c, pr_cc)
     G_c = get_shear_modulus(material, pr_cc)
-    K_c = K_scalar if scalar_K else get_bulk_modulus(material, pr_cc)
+    K_c = get_bulk_modulus(material, pr_cc)
     tau_oc_canvas = tuple(embed_center(t) for t in tau_o_c6)
     tau_oe_canvas = tuple(embed_edge(t, k) for k, t in enumerate(tau_o_e3))
     names3 = ("yz", "xz", "xy")
     ppe, G_e, K_e, tau_o6_e = [], [], [], []
     for k, (a, b) in enumerate(_EDGE_AXES3):
-        if scalar_plastic:
-            ppe.append(pp_s)
-        else:
-            EII_e = moves.center_to_edge(EII_c, a, b)
-            ppe.append(plastic_params_phase(material, EII_e, pr_ec[k]))
+        EII_e = moves.center_to_edge(EII_c, a, b)
+        ppe.append(plastic_params_phase(material, EII_e, pr_ec[k]))
         G_e.append(get_shear_modulus(material, pr_ec[k]))
-        K_e.append(K_scalar if scalar_K
-                   else get_bulk_modulus(material, pr_ec[k]))
-        if not hoist_tau_o:
-            continue
+        K_e.append(get_bulk_modulus(material, pr_ec[k]))
         # τ_o edge interpolants are solve-frozen — hoisted like the blends
         t_no = [moves.center_to_edge(tau_oc_canvas[i], a, b) for i in range(3)]
         t_so = []
@@ -318,7 +265,7 @@ def vep3d_canvas_consts(material, tau_o_c6, tau_o_e3, EII_pl, P0, Q,
     params = VEPParams3D(
         ppc=ppc, G_c=G_c, K_c=K_c,
         ppe=tuple(ppe), G_e=tuple(G_e), K_e=tuple(K_e),
-        tau_o6_e=tuple(tau_o6_e) if hoist_tau_o else None,
+        tau_o6_e=tuple(tau_o6_e),
     )
 
     # buoyancy: ρ(T, P)·g is affine in P with T frozen (phase_average is
@@ -398,40 +345,25 @@ def iteration_vep3d_canvas(
     viscosity_relaxation,
     viscosity_cutoff=(-jnp.inf, jnp.inf),
     shift="slice",
-    x_off=0,
-    y_off=0,
-    edges_pallas=False,
-    edges_interpret=False,
-    edges_nvals=None,
 ):
     """One fused 3D VEP PT iteration on collocated canvases — semantics of
     solvers/stokes3d_vep.py::one_iteration (maxloc → θ update → ρ(T,P)·g →
     strain rate → fused center+edges return mapping → τII viscosity
-    continuation → damped velocity update + free-slip BCs). ``x_off``/
-    ``y_off`` map local canvas rows to global rows for windowed
-    (Pallas-blocked) execution; ``shift="roll"`` is the Mosaic-compatible
-    lowering.
-
-    ``edges_pallas=True`` is the r05 HYBRID iteration: the three edge
-    return-mapping passes (~78% of the XLA iteration's time, pass-bisect
-    probe) run in the radius-2 Pallas x-slab kernel
-    (ops/pallas_vep3d_edges.py) while everything else stays XLA; both
-    passes read the pre-iteration state (Jacobi), so the split is exact.
-    Requires ``co`` built with ``scalar_plastic=True, hoist_tau_o=False``
-    (the blocked-kernel consts convention)."""
+    continuation → damped velocity update + free-slip BCs). ``shift``
+    picks the neighbor-shift lowering (ops/stokes3d_canvas.py)."""
     ni = (nx, ny, nz)
     _sm1, _sp1 = shift_fns(shift)
-    moves = canvas_moves(ni, shift=shift, x_off=x_off, y_off=y_off)
+    moves = canvas_moves(ni, shift=shift)
     Vx, Vy, Vz = c.V
     inv_dx, inv_dy, inv_dz = inv_di
     shape = c.P.shape
     dtype = c.P.dtype
 
     def xb(lo, hi):
-        return _band(shape, 0, lo, hi, offset=x_off)
+        return _band(shape, 0, lo, hi)
 
     def yb(lo, hi):
-        return _band(shape, 1, lo, hi, offset=y_off)
+        return _band(shape, 1, lo, hi)
 
     def zb(lo, hi):
         return _band(shape, 2, lo, hi)
@@ -449,7 +381,7 @@ def iteration_vep3d_canvas(
     MVz = xb(1, nx) & yb(1, ny) & zb(1, nz - 1)
 
     # 1. maxloc preconditioner + divergence + compressible θ iterate
-    eta_tau = _maxloc_canvas(c.eta, ni, _sm1, _sp1, x_off, y_off)
+    eta_tau = _maxloc_canvas(c.eta, ni, _sm1, _sp1)
     dVxdx = (Vx - _sp1(Vx, 0)) * inv_dx
     dVydy = (Vy - _sp1(Vy, 1)) * inv_dy
     dVzdz = (Vz - _sp1(Vz, 2)) * inv_dz
@@ -480,46 +412,14 @@ def iteration_vep3d_canvas(
     # 4. fused center+edges return mapping — the EXACT serial kernel body,
     # driven through canvas-collocated moves and the precomputed
     # phase-blended parameter canvases (no (..., nphase) math in the loop)
-    if edges_pallas:
-        from justrelax_tpu.ops.pallas_vep3d_edges import (
-            vep3d_edges_blocked,
-            vep3d_edges_split,
-        )
-
-        res = update_stresses_center_edges_3d(
-            (exx, eyy, ezz), (eyz, exz, exy),
-            c.tau_c, c.tau_e, co.tau_o_c, co.tau_o_e,
-            theta, c.eta, c.lam, c.lam_e, None,
-            material, None, (None, None, None),
-            lambda_relaxation, dt, theta_dtau,
-            moves=moves, params=co.params, probe_passes=("center",),
-        )
-        if edges_pallas == "split":
-            tau_e_k, lam_e_k = vep3d_edges_split(
-                c.V, theta, c.eta, c.tau_c, c.tau_e, c.lam_e, co, inv_di,
-                dt=dt, theta_dtau=theta_dtau,
-                lambda_relaxation=lambda_relaxation,
-                interpret=edges_interpret,
-                nvals=22 if edges_nvals is None else edges_nvals,
-            )
-        else:
-            tau_e_k, lam_e_k = vep3d_edges_blocked(
-                c.V, theta, c.eta, c.tau_c, c.tau_e, c.lam_e, co, inv_di,
-                dt=dt, theta_dtau=theta_dtau,
-                lambda_relaxation=lambda_relaxation,
-                interpret=edges_interpret,
-                nvals=40 if edges_nvals is None else edges_nvals,
-            )
-        res = res._replace(tau_e=tau_e_k, lam_e=lam_e_k)
-    else:
-        res = update_stresses_center_edges_3d(
-            (exx, eyy, ezz), (eyz, exz, exy),
-            c.tau_c, c.tau_e, co.tau_o_c, co.tau_o_e,
-            theta, c.eta, c.lam, c.lam_e, None,
-            material, None, (None, None, None),
-            lambda_relaxation, dt, theta_dtau,
-            moves=moves, params=co.params,
-        )
+    res = update_stresses_center_edges_3d(
+        (exx, eyy, ezz), (eyz, exz, exy),
+        c.tau_c, c.tau_e, co.tau_o_c, co.tau_o_e,
+        theta, c.eta, c.lam, c.lam_e, None,
+        material, None, (None, None, None),
+        lambda_relaxation, dt, theta_dtau,
+        moves=moves, params=co.params,
+    )
     tau_c = tuple(
         jnp.where(Mc, t, old) for t, old in zip(res.tau_c, c.tau_c)
     )
@@ -534,8 +434,7 @@ def iteration_vep3d_canvas(
 
     # 5. τII viscosity continuation (solver refresh_viscosity): the creep
     # target is the precomputed constant canvas (linear table) or the
-    # collapsed power law 1/η = A + B·τII^m (ops/pallas_stokes_vep.py's
-    # proven const strategy)
+    # collapsed power law 1/η = A + B·τII^m
     eps0 = jnp.where(
         sum(jnp.abs(t) for t in tau_c) == 0, jnp.finfo(dtype).eps, 0.0
     )

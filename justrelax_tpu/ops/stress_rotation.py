@@ -99,8 +99,10 @@ def rotate_stress_particles_3d(
             jnp.stack([p_txz, p_tyz, p_tzz]),
         ]
     )  # (3, 3, ...)
-    # τ' = R τ Rᵀ with matrix axes in front, einsum over them
-    taur = jnp.einsum("ik...,kl...,jl...->ij...", R, tau, R)
+    # τ' = R τ Rᵀ with matrix axes in front, as elementwise products summed
+    # over the 3×3 axes: no dot is emitted, so a GPU never runs it in TF32
+    A = jnp.sum(R[:, :, None] * tau[None, :, :], axis=1)  # (R τ)_il
+    taur = jnp.sum(A[:, None, :] * R[None, :, :], axis=2)  # (R τ Rᵀ)_ij
     return (
         taur[0, 0], taur[1, 1], taur[2, 2],
         taur[1, 2], taur[0, 2], taur[0, 1],

@@ -4,7 +4,7 @@ The reference runs DYREL under MPI with batched vertex-stress halo exchanges
 and V halos inside the inner dynamic-relaxation loop
 (/root/reference/src/DYREL/solver.jl:199-206,225-226) plus MPI-reduced norms.
 
-The TPU-native re-design needs none of that by hand: ``solve_dyrel``
+The JAX-native re-design needs none of that by hand: ``solve_dyrel``
 (solvers/dyrel.py) is built entirely from static-slice stencils, global
 reductions, and ``lax.while_loop`` — exactly the program class XLA's SPMD
 partitioner shards automatically. The distributed entry point wraps the

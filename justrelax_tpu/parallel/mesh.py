@@ -2,7 +2,7 @@
 
 The reference scales by sharding the *spatial grid* over MPI ranks
 (ImplicitGlobalGrid; SURVEY.md §2.2) — the only parallelism in a stencil
-solver. The TPU-native equivalent is a ``jax.sharding.Mesh`` with named axes
+solver. The JAX-native equivalent is a ``jax.sharding.Mesh`` with named axes
 ("x", "y"[, "z"]): every grid array is sharded along its spatial axes with a
 ``NamedSharding``, and XLA's SPMD partitioner automatically turns the shifted
 slices of the stencil kernels into neighbor collective-permutes over ICI —

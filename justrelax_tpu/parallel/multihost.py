@@ -3,7 +3,7 @@
 The reference initializes MPI, builds a Cartesian communicator, and allocates
 rank-local blocks (src/grid/Grid.jl:18-46,157-217 via
 ``init_global_grid``); its CI proves 2 nodes x 4 GPUs
-(ci/cscs-gh200.yml:28-35). The TPU-native equivalents here:
+(ci/cscs-gh200.yml:28-35). The JAX-native equivalents here:
 
 - :func:`initialize` — ``jax.distributed.initialize`` wrapper (MPI_Init):
   one JAX process per host; after it, ``jax.devices()`` is the GLOBAL device

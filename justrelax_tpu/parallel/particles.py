@@ -1,7 +1,7 @@
 """Distributed (multi-device) particle transport, 2D.
 
 The reference's particles live in JustPIC CellArrays and migrate between
-MPI ranks inside ``move_particles!`` (SURVEY §2.4). The TPU-native design:
+MPI ranks inside ``move_particles!`` (SURVEY §2.4). The JAX-native design:
 
 - particle slot arrays are *blocked-local* like the grid fields
   (``(px·nxl, py·nyl, max_xcell)`` containers), with positions stored

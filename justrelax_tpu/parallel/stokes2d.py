@@ -3,7 +3,7 @@
 The reference parallelizes by MPI domain decomposition with halo exchange
 after every velocity / shear-stress / preconditioner update
 (/root/reference/src/stokes/Stokes2D.jl:181-341 + ImplicitGlobalGrid). The
-TPU-native re-design runs the whole PT loop inside one ``shard_map`` over an
+JAX-native re-design runs the whole PT loop inside one ``shard_map`` over an
 ("x","y") device mesh:
 
 - per-device state is the blocked-local staggered layout of decomp.py

@@ -1,6 +1,6 @@
 """Particle-in-cell material transport (JustPIC equivalent, SURVEY.md §2.4).
 
-TPU-native design: particles live in *fixed per-cell slots* — every array has
+JAX-native design: particles live in *fixed per-cell slots* — every array has
 shape ``(nx, ny, max_xcell)`` with an ``active`` mask — which is exactly the
 reference's CellArray layout (`@index particles.index[ip, i, j]`) made
 explicit. All operations are static-shape and vectorized:
@@ -26,7 +26,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from justrelax_tpu.core.pytree import dataclass, field
 
 Array = Any
 
@@ -46,13 +47,13 @@ __all__ = [
 ]
 
 
-@struct.dataclass
+@dataclass
 class Particles:
     px: Array  # (nx, ny, max_xcell) absolute x
     py: Array
     active: Array  # bool mask
-    min_xcell: int = struct.field(pytree_node=False, default=0)
-    nxcell: int = struct.field(pytree_node=False, default=0)
+    min_xcell: int = field(static=True, default=0)
+    nxcell: int = field(static=True, default=0)
 
     @property
     def max_xcell(self) -> int:

@@ -13,7 +13,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from justrelax_tpu.core.pytree import dataclass, field
 
 Array = Any
 
@@ -31,14 +32,14 @@ __all__ = [
 ]
 
 
-@struct.dataclass
+@dataclass
 class Particles3D:
     px: Array  # (nx, ny, nz, max_xcell)
     py: Array
     pz: Array
     active: Array
-    min_xcell: int = struct.field(pytree_node=False, default=0)
-    nxcell: int = struct.field(pytree_node=False, default=0)
+    min_xcell: int = field(static=True, default=0)
+    nxcell: int = field(static=True, default=0)
 
     @property
     def max_xcell(self) -> int:

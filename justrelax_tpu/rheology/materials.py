@@ -2,7 +2,7 @@
 
 The reference delegates material properties (density EOS, heat capacity,
 conductivity, elastic moduli, creep laws, plasticity) to GeoParams.jl with
-compile-time dispatch per phase (see SURVEY.md §2.4). The TPU-native design
+compile-time dispatch per phase (see SURVEY.md §2.4). The JAX-native design
 replaces dispatch with *fixed-arity vectorization*: a :class:`MaterialStack`
 holds every parameter as a ``(nphase,)`` array, properties are evaluated for
 all phases at once, and multi-phase cells combine them with phase-ratio
@@ -26,7 +26,8 @@ from typing import Any, Optional, Sequence
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from justrelax_tpu.core.pytree import dataclass
 
 Array = Any
 
@@ -48,7 +49,7 @@ __all__ = [
 _INF = float("inf")
 
 
-@struct.dataclass
+@dataclass
 class Material:
     """Single-phase material parameters (all scalars, traced leaves)."""
 
@@ -137,7 +138,7 @@ class Material:
     gravity: Array = 0.0
 
 
-@struct.dataclass
+@dataclass
 class MaterialStack:
     """``nphase`` materials stacked: every field has shape ``(nphase,)``."""
 

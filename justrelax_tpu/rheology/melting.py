@@ -1,6 +1,6 @@
 """Melt-fraction parameterizations and melt-dependent properties.
 
-TPU-native equivalent of the reference melting layer
+JAX-native equivalent of the reference melting layer
 (/root/reference/src/rheology/Melting.jl:1-26, which delegates per cell to
 GeoParams ``compute_meltfraction``) and of the melt/bubble/gas-dependent
 thermal-expansivity shims (/root/reference/src/rheology/GeoParams.jl:17-59).

@@ -1,6 +1,6 @@
 """Accelerated pseudo-transient Stokes solvers, 2D.
 
-TPU-native re-design of the reference drivers
+Re-design of the reference solve routines
 (/root/reference/src/stokes/Stokes2D.jl). This module provides the linear
 viscous / visco-elastic solver (reference ``_solve!`` variants at
 Stokes2D.jl:19-163 and 181-341); the nonlinear VEP (GeoParams) and multi-phase
@@ -74,7 +74,6 @@ def _norm(x):
         "free_surface",
         "halo_exchange",
         "reduce_norm",
-        "use_pallas",
     ),
 )
 def solve_ve(
@@ -92,7 +91,6 @@ def solve_ve(
     halo_exchange=None,
     reduce_norm=None,
     alpha_dT=None,
-    use_pallas: bool = False,
 ) -> Tuple[StokesState, StokesSolveInfo]:
     """Visco-elastic (compressible) APT Stokes solve, one physical timestep.
 
@@ -102,24 +100,6 @@ def solve_ve(
     limits (SolCx et al.). ``alpha_dT = α·ΔT`` (cell-centered) adds the
     thermal-stress pressure source of Kiss et al. 2023 (reference
     PressureKernels.jl:197-206).
-
-    ``use_pallas=True`` runs each ``nout``-iteration chunk inside a Pallas
-    kernel (ops/pallas_stokes.py); both kernels cover the full visco-elastic
-    compressible physics of this solver (G, K, P0, Q, τ_o enter as
-    chunk-invariant coefficient canvases) and require all-free-slip BCs on
-    a uniform serial grid. Dispatch by grid size:
-
-    - VMEM-resident chunk (≲820² f32): all state lives in VMEM for the
-      whole chunk — measured on v5e at 382²: 3.3 µs/iter, 2.8 TB/s
-      effective T_eff, ~6× the XLA streaming path per grid update.
-    - Grid-blocked temporal streaming (larger grids): row-blocks with
-      2k-row halos advance k=8 iterations per VMEM pass with
-      double-buffered DMA — measured on v5e at 1024² f32: 41 µs/iter vs
-      the XLA path's 79, ~1.6 TB/s effective (2× HBM peak).
-
-    ``use_pallas="blocked"`` forces the blocked kernel regardless of size
-    (testing hook). Grids where neither kernel fits are rejected at trace
-    time.
     """
     nx, ny = stokes.P.shape
     if hasattr(geometry, "di_center"):  # nonuniform vector-spacing grid
@@ -142,37 +122,6 @@ def solve_ve(
     nout = int(nout)
     max_chunks = max(1, int(math.ceil(iter_max / nout)))
     fs_dt = dt if free_surface else None
-
-    pallas_blocked = False
-    if use_pallas:
-        fs, ns = flow_bc.free_slip, flow_bc.no_slip
-        if hasattr(geometry, "di_center"):
-            raise ValueError("use_pallas requires a uniform grid")
-        if free_surface or halo_exchange is not None or alpha_dT is not None:
-            raise ValueError(
-                "use_pallas supports the serial non-free-surface path only"
-            )
-        if not (fs.left and fs.right and fs.top and fs.bot) or any(
-            (ns.left, ns.right, ns.top, ns.bot)
-        ):
-            raise ValueError("use_pallas supports all-free-slip BCs only")
-        from justrelax_tpu.ops.pallas_stokes import (
-            VMEM_BUDGET,
-            choose_blocking,
-            vmem_bytes_needed,
-        )
-
-        itemsize = jnp.dtype(stokes.P.dtype).itemsize
-        pallas_blocked = (
-            use_pallas == "blocked"
-            or vmem_bytes_needed(nx, ny, itemsize) > VMEM_BUDGET
-        )
-        if pallas_blocked and choose_blocking(nx, ny, itemsize) is None:
-            raise ValueError(
-                f"grid {nx}x{ny} exceeds the VMEM chunk kernel budget "
-                f"({vmem_bytes_needed(nx, ny, itemsize)} > {VMEM_BUDGET} B) "
-                "and no blocked configuration fits VMEM"
-            )
 
     eta = stokes.viscosity.eta
     eta_tau = maxloc(eta, window=1)
@@ -228,24 +177,9 @@ def solve_ve(
         return (c.chunk < 1) | (not_converged & (c.chunk < max_chunks))
 
     def body(c: _Carry):
-        if use_pallas:
-            from justrelax_tpu.ops.pallas_stokes import (
-                stokes_chunk_blocked,
-                stokes_chunk_vmem,
-            )
-
-            chunk = stokes_chunk_blocked if pallas_blocked else stokes_chunk_vmem
-            Vx, Vy, P, txx, tyy, txy = chunk(
-                c.Vx, c.Vy, c.P, c.txx, c.tyy, c.txy,
-                eta, eta_tau, rho_gx, rho_gy,
-                inv_dx, inv_dy, r, theta_dtau, etadtau, nout=nout,
-                G=G, K=K, P0=P0, Q=Q, tau_o=(txx_o, tyy_o, txy_o), dt=dt,
-                interpret=jax.default_backend() != "tpu",
-            )
-        else:
-            Vx, Vy, P, txx, tyy, txy = lax.fori_loop(
-                0, nout, one_iteration, (c.Vx, c.Vy, c.P, c.txx, c.tyy, c.txy)
-            )
+        Vx, Vy, P, txx, tyy, txy = lax.fori_loop(
+            0, nout, one_iteration, (c.Vx, c.Vy, c.P, c.txx, c.tyy, c.txy)
+        )
         nRx, nRy, nRP, RP, _, _ = residual_norms(Vx, Vy, P, txx, tyy, txy)
         err = jnp.maximum(jnp.maximum(nRx, nRy), nRP)
         err1 = jnp.where(c.chunk == 0, err, c.err1)

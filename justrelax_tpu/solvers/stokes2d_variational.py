@@ -224,7 +224,7 @@ def solve_variational(
         pcy = jnp.maximum(phi.Vy[:, 1:-1], mask_step_floor)
         # fused masked add + invalid-face hard-zeroing (reference
         # compute_V!:195-215); mask+select instead of slab .at updates —
-        # see ops/stencil.py::interior_set (3x on v5e)
+        # see ops/stencil.py::interior_set
         Vx = interior_set(
             c.Vx,
             jnp.where(

@@ -30,85 +30,12 @@ Array = Any
 __all__ = ["solve_ve_3d"]
 
 
-def _static_all_inf(x):
-    """True iff ``x`` is concrete (not traced) and everywhere +-inf."""
-    try:
-        import numpy as _np
-        return bool(_np.all(_np.isinf(_np.asarray(x))))
-    except Exception:
-        return False
-
-
-def _static_all_zero(x):
-    try:
-        import numpy as _np
-        return bool(_np.all(_np.asarray(x) == 0))
-    except Exception:
-        return False
-
-
-def solve_ve_3d(
-    stokes: StokesState,
-    pt_stokes: PTStokesCoeffs,
-    geometry,
-    flow_bc: VelocityBoundaryConditions,
-    rho_g,
-    G: Array,
-    K: Array,
-    dt,
-    iter_max: int = 10_000,
-    nout: int = 500,
-    mean_free_RP: bool = False,
-    boundary_shear: bool = False,
-    alpha_dT=None,
-    use_pallas: bool = False,
-    pallas_lean=None,
-) -> Tuple[StokesState, StokesSolveInfo]:
-    """Thin static-option resolver over the jitted solver body (see
-    :func:`_solve_ve_3d` for the physics/docs). ``pallas_lean=None``
-    auto-enables the lean-consts canvas chunk (stream η/ητ/ρg only,
-    re-derive the coefficient canvases in the loop body —
-    ops/stokes3d_canvas.py::stokes3d_chunk_canvas_lean) when the physics is
-    statically the viscous incompressible limit: G, K and dt all concretely
-    ∞. Traced inputs or finite moduli fall back to the precomputed
-    coefficient canvases (always correct)."""
-    lean_f = (True, True, True)
-    if pallas_lean is None:
-        pallas_lean = (
-            use_pallas is True
-            and _static_all_inf(G) and _static_all_inf(K)
-            and _static_all_inf(dt)
-        )
-    elif pallas_lean:
-        # Explicit opt-in still requires the viscous-incompressible limit:
-        # the lean chunk re-derives coefficients assuming G=K=dt=inf, so
-        # running it on finite moduli would silently compute the wrong
-        # physics (ADVICE r04).
-        if not (_static_all_inf(G) and _static_all_inf(K)
-                and _static_all_inf(dt)):
-            raise ValueError(
-                "pallas_lean=True requires statically infinite G, K and dt "
-                "(viscous incompressible limit); got finite/traced moduli. "
-                "Use pallas_lean=None for auto-detection."
-            )
-    if pallas_lean:
-        lean_f = tuple(not _static_all_zero(f) for f in rho_g)
-    return _solve_ve_3d(
-        stokes, pt_stokes, geometry, flow_bc, tuple(rho_g), G, K, dt,
-        iter_max=iter_max, nout=nout, mean_free_RP=mean_free_RP,
-        boundary_shear=boundary_shear, alpha_dT=alpha_dT,
-        use_pallas=use_pallas, pallas_lean=bool(pallas_lean),
-        lean_f_nonzero=lean_f,
-    )
-
-
 @partial(
     jax.jit,
     static_argnames=("geometry", "flow_bc", "iter_max", "nout", "mean_free_RP",
-                     "boundary_shear", "use_pallas", "pallas_lean",
-                     "lean_f_nonzero"),
+                     "boundary_shear"),
 )
-def _solve_ve_3d(
+def solve_ve_3d(
     stokes: StokesState,
     pt_stokes: PTStokesCoeffs,
     geometry,
@@ -122,30 +49,14 @@ def _solve_ve_3d(
     mean_free_RP: bool = False,
     boundary_shear: bool = False,
     alpha_dT=None,
-    use_pallas: bool = False,
-    pallas_lean: bool = False,
-    lean_f_nonzero=(True, True, True),
 ) -> Tuple[StokesState, StokesSolveInfo]:
-    """``mean_free_RP`` deflates the constant pressure-nullspace mode: with
+    """Visco-elastic (compressible) APT Stokes solve, one physical timestep.
+
+    ``mean_free_RP`` deflates the constant pressure-nullspace mode: with
     velocity imposed on every boundary, discretely incompatible boundary data
     (nonzero net flux, e.g. the Burstedde manufactured solution sampled at
     cell midpoints) otherwise makes P drift indefinitely and the continuity
-    residual stall.
-
-    ``use_pallas=True`` runs each ``nout``-iteration chunk through the
-    fast path picked BY ON-CHIP MEASUREMENT (docs/performance.md, "3D
-    measurement record"): the collocated-canvas XLA iteration
-    (ops/stokes3d_canvas.py) — 492 µs/iter at 126³ f32 on v5e (0.70× HBM
-    peak) vs the slice/pad default's 534 (0.64×). The temporally-blocked
-    Pallas x-slab kernel (ops/pallas_stokes3d_blocked.py) stays available
-    as ``use_pallas="blocked"``: its r03 0.89×-peak measurement did NOT
-    reproduce in r04 (582-811 µs serial, 505 pipelined — the ~46-plane/W
-    VMEM spill of the 3D VE body caps the window at W≈22, forcing
-    1.6-2.2× redundant halo compute). Requires a uniform serial grid,
-    all-free-slip BCs, and the default residual/pressure options; residual
-    norms are evaluated once per chunk from the streamed state (one velocity
-    update later than the XLA path's in-iteration residuals — same
-    convergence criterion, slightly different iteration counts)."""
+    residual stall."""
     nx, ny, nz = stokes.P.shape
     # nonuniform vector-spacing support (reference Grid.jl:262-316 _di
     # variants): center family for divergence/normal strains, vertex family
@@ -165,45 +76,6 @@ def _solve_ve_3d(
         stokes.tau_o.yz, stokes.tau_o.xz, stokes.tau_o.xy,
     )
     fx, fy, fz = rho_g
-
-    if use_pallas:
-        fs = flow_bc.free_slip
-        if hasattr(geometry, "di_center"):
-            raise ValueError("use_pallas requires a uniform grid")
-        if mean_free_RP or boundary_shear or alpha_dT is not None:
-            raise ValueError(
-                "use_pallas supports the default residual/shear options only"
-            )
-        if not all((fs.left, fs.right, fs.top, fs.bot, fs.front, fs.back)) \
-                or flow_bc.no_slip.any():
-            raise ValueError("use_pallas supports all-free-slip BCs only")
-        from justrelax_tpu.ops.stokes3d_canvas import (
-            lean_canvas_consts,
-            pack_carry,
-            unpack_carry,
-            ve3d_canvas_coefficients,
-        )
-
-        if pallas_lean and use_pallas is True:
-            # statically-viscous limit (wrapper-verified G/K/dt all inf):
-            # stream only η, ητ and the nonzero body-force canvases;
-            # coefficient canvases are re-derived inside the loop body
-            lean_consts = lean_canvas_consts(
-                eta, eta_tau,
-                fx=fx if lean_f_nonzero[0] else None,
-                fy=fy if lean_f_nonzero[1] else None,
-                fz=fz if lean_f_nonzero[2] else None,
-            )
-            co_pallas = None
-        else:
-            # full VE/compressible coefficient canvases (always correct; the
-            # viscous limit just carries trivial c1/c2/a/d canvases — ~23 vs
-            # 11 streamed planes, still far below the XLA path's ~53)
-            co_pallas = ve3d_canvas_coefficients(
-                eta, eta_tau, r, theta_dtau, etadtau,
-                fx=fx, fy=fy, fz=fz, psi_eta=eta,
-                G=G, K=K, P0=P0, Q=Q, tau_o=tau_o, dt=dt,
-            )
 
     class C(NamedTuple):
         V: Tuple
@@ -256,52 +128,11 @@ def _solve_ve_3d(
         return tuple(getattr(c2, k) for k in _CORE)
 
     def body(c: C):
-        if use_pallas:
-            Vx, Vy, Vz = c.V
-            packed = tuple(pack_carry(Vx, Vy, Vz, c.P, *c.tau))
-            if use_pallas == "blocked":
-                from justrelax_tpu.ops.pallas_stokes3d_blocked import (
-                    stokes3d_chunk_blocked,
-                )
-
-                out = stokes3d_chunk_blocked(
-                    packed, co_pallas, inv_di, nout_i,
-                    interpret=jax.default_backend() != "tpu",
-                )
-            elif pallas_lean:
-                from justrelax_tpu.ops.stokes3d_canvas import (
-                    stokes3d_chunk_canvas_lean,
-                )
-
-                out = stokes3d_chunk_canvas_lean(
-                    packed, lean_consts, r, theta_dtau, etadtau,
-                    inv_di, nout_i, psi_from_eta=True,
-                )
-            else:
-                from justrelax_tpu.ops.stokes3d_canvas import (
-                    stokes3d_chunk_canvas,
-                )
-
-                out = stokes3d_chunk_canvas(
-                    packed, co_pallas, inv_di, nout_i
-                )
-            Vx, Vy, Vz, P, *tau6 = unpack_carry(jnp.stack(out), nx, ny, nz)
-            # residuals from the streamed state (post-update convention)
-            grad_V = k3.compute_grad_V_3d(Vx, Vy, Vz, inv_di)
-            RP, _ = compute_P(P, P0, grad_V, Q, eta, K, G, dt, r, theta_dtau)
-            _, _, _, Rx, Ry, Rz = k3.compute_V_3d(
-                Vx, Vy, Vz, P, tuple(tau6), fx, fy, fz,
-                jnp.ones_like(P), 0.0, inv_di, spacings=mom_spacings,
-            )
-            c = c._replace(
-                V=(Vx, Vy, Vz), P=P, tau=tuple(tau6), RP=RP, R=(Rx, Ry, Rz)
-            )
-        else:
-            t = lax.fori_loop(
-                0, nout_i - 1, one_iteration_core,
-                tuple(getattr(c, k) for k in _CORE),
-            )
-            c = one_iteration(0, c._replace(**dict(zip(_CORE, t))))
+        t = lax.fori_loop(
+            0, nout_i - 1, one_iteration_core,
+            tuple(getattr(c, k) for k in _CORE),
+        )
+        c = one_iteration(0, c._replace(**dict(zip(_CORE, t))))
         nRx, nRy, nRz, nRP = norms(c)
         err = jnp.max(jnp.stack([nRx, nRy, nRz, nRP]))
         err1 = jnp.where(c.chunk == 0, err, c.err1)

@@ -159,7 +159,7 @@ def solve_variational_3d(
         etaz = 0.5 * (eta_tau[:, :, 1:] + eta_tau[:, :, :-1])
         # fused masked add + invalid-face hard-zeroing (reference
         # compute_V! masked form); mask+select instead of slab .at updates —
-        # see ops/stencil.py::interior_set (3x on v5e)
+        # see ops/stencil.py::interior_set
         Vx = interior_set(
             Vx,
             jnp.where(

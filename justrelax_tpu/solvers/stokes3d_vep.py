@@ -90,6 +90,13 @@ def _masked_momentum_3d(P, tau6, fx, fy, fz, inv_di, phi, vm,
     return Rx, Ry, Rz
 
 
+@partial(
+    jax.jit,
+    static_argnames=(
+        "geometry", "flow_bc", "iter_max", "iter_min", "nout",
+        "viscosity_relaxation", "lambda_relaxation", "viscosity_cutoff",
+    ),
+)
 def solve_vep_3d(
     stokes: StokesState,
     pt_stokes: PTStokesCoeffs,
@@ -107,122 +114,10 @@ def solve_vep_3d(
     lambda_relaxation: float = 0.2,
     viscosity_cutoff: Tuple[float, float] = (-jnp.inf, jnp.inf),
     phi=None,
-    use_pallas: bool = False,
-    pallas_visc_m="auto",
 ) -> Tuple[StokesState, StokesSolveInfo]:
-    """Thin static-option resolver over the jitted solver body (see
-    :func:`_solve_vep_3d`). ``pallas_visc_m`` is the collapsed power-law
-    exponent for the Pallas paths' viscosity target — "auto" resolves it
-    from a CONCRETE material via ``shared_powerlaw_exponent`` (pass it
-    explicitly when calling under an outer jit with traced material
-    leaves, mirroring solve_vep's 2D escape hatch).
+    """One multi-phase VEP Stokes solve (one physical timestep).
 
-    Dispatch (set by ON-CHIP paired A/B, v5e 126³ f32, r05,
-    docs/performance.md): ``use_pallas=True`` runs the HYBRID iteration —
-    the three edge return-mapping passes in the radius-2 Pallas x-slab
-    kernel (ops/pallas_vep3d_edges.py), center/θ/viscosity/velocity in
-    XLA on canvases — measured 3 044 µs/iter vs the mixed-shape XLA
-    default's 3 414 (paired, noise ±10 µs): a certified 12% win. Falls
-    back to "canvas" when the hybrid's phase-uniform-plasticity guard
-    fails. ``use_pallas="canvas"`` is the plain collocated-canvas chunk
-    (a measured LOSS vs XLA — uniform-layout route only);
-    ``use_pallas="blocked"`` the fully-fused grid-blocked kernel
-    (statistical tie with XLA at its best config)."""
-    if use_pallas is True:
-        from justrelax_tpu.ops.pallas_stokes3d_vep_blocked import (
-            vep3d_blocked_supported,
-        )
-        import numpy as _np
-
-        from justrelax_tpu.rheology.materials import _as_stack
-
-        Kb = _np.asarray(_as_stack(material).params.Kb)
-        if vep3d_blocked_supported(material) \
-                and bool(_np.all(Kb == Kb.ravel()[0])):
-            use_pallas = "edges"
-        else:
-            use_pallas = "canvas"
-    if use_pallas in ("blocked", "edges", "edges_split"):
-        # grid-blocked Pallas streaming kernel
-        # (ops/pallas_stokes3d_vep_blocked.py): scalar plastic params +
-        # scalar K under the phase-uniform guard, τ_o re-derived in VMEM
-        import numpy as _np
-
-        from justrelax_tpu.ops.pallas_stokes3d_vep_blocked import (
-            vep3d_blocked_supported,
-        )
-        from justrelax_tpu.rheology.materials import _as_stack
-
-        if not vep3d_blocked_supported(material):
-            raise ValueError(
-                "use_pallas='blocked' requires phase-uniform plasticity "
-                "with strain softening off "
-                "(pallas_stokes3d_vep_blocked.vep3d_blocked_supported)"
-            )
-        Kb = _np.asarray(_as_stack(material).params.Kb)
-        if not bool(_np.all(Kb == Kb.ravel()[0])):
-            raise ValueError(
-                "use_pallas='blocked' requires a phase-uniform bulk "
-                "modulus Kb (scalar-K consts collapse)"
-            )
-    if use_pallas and pallas_visc_m == "auto":
-        import numpy as _np
-
-        from justrelax_tpu.rheology.materials import _as_stack
-        from justrelax_tpu.rheology.viscosity import shared_powerlaw_exponent
-
-        p = _as_stack(material).params
-        linear = not any(
-            _np.any(_np.asarray(getattr(p, a)) > 0)
-            for a in ("disl_A", "diff_A", "peierls_A", "gbs_A")
-        )
-        pallas_visc_m = None if linear else shared_powerlaw_exponent(material)
-        if pallas_visc_m is None and not linear:
-            raise ValueError(
-                "use_pallas requires a linear or shared-exponent power-law "
-                "creep table (shared_powerlaw_exponent)"
-            )
-    return _solve_vep_3d(
-        stokes, pt_stokes, geometry, flow_bc, material,
-        phase_ratios_center, phase_ratios_edges, dt, T=T,
-        iter_max=iter_max, iter_min=iter_min, nout=nout,
-        viscosity_relaxation=viscosity_relaxation,
-        lambda_relaxation=lambda_relaxation,
-        viscosity_cutoff=viscosity_cutoff, phi=phi,
-        use_pallas=use_pallas,
-        pallas_visc_m=None if pallas_visc_m == "auto" else pallas_visc_m,
-    )
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "geometry", "flow_bc", "iter_max", "iter_min", "nout",
-        "viscosity_relaxation", "lambda_relaxation", "viscosity_cutoff",
-        "use_pallas", "pallas_visc_m",
-    ),
-)
-def _solve_vep_3d(
-    stokes: StokesState,
-    pt_stokes: PTStokesCoeffs,
-    geometry,
-    flow_bc: VelocityBoundaryConditions,
-    material,
-    phase_ratios_center: Optional[Array],
-    phase_ratios_edges,  # (yz, xz, xy) ratios or (None, None, None)
-    dt,
-    T: Optional[Array] = None,
-    iter_max: int = 50_000,
-    iter_min: int = 100,
-    nout: int = 500,
-    viscosity_relaxation: float = 1.0e-2,
-    lambda_relaxation: float = 0.2,
-    viscosity_cutoff: Tuple[float, float] = (-jnp.inf, jnp.inf),
-    phi=None,
-    use_pallas: bool = False,
-    pallas_visc_m=None,
-) -> Tuple[StokesState, StokesSolveInfo]:
-    """With ``phi`` (a :class:`~justrelax_tpu.ops.rock_ratio.RockRatio3D`)
+    With ``phi`` (a :class:`~justrelax_tpu.ops.rock_ratio.RockRatio3D`)
     the solve becomes the MASKED variational VEP (reference
     variational_stokes/Stokes3D.jl): air carries no equations, stencil
     differences are φ-weighted, invalid faces hard-zeroed — the 3D
@@ -249,9 +144,9 @@ def _solve_vep_3d(
     G_c = get_shear_modulus(material, phase_ratios_center)
 
     # hoist solve-invariants of the fused stress update (phase blends + τ_o
-    # edge interpolants; bitwise-equal to in-loop evaluation) — the three
-    # edge passes dominate the iteration (~1150 µs/family vs 560 µs for the
-    # whole center pass at 126^3, scripts/probe_vep3d.py)
+    # edge interpolants; bitwise-equal to in-loop evaluation) out of the
+    # loop: the three edge passes would otherwise recompute them per
+    # iteration
     from justrelax_tpu.ops.stokes3d_vep import make_vep_params_3d
 
     vep_params = make_vep_params_3d(
@@ -363,9 +258,8 @@ def _solve_vep_3d(
             etax = 0.5 * (eta_tau[1:, :, :] + eta_tau[:-1, :, :])
             etay = 0.5 * (eta_tau[:, 1:, :] + eta_tau[:, :-1, :])
             etaz = 0.5 * (eta_tau[:, :, 1:] + eta_tau[:, :, :-1])
-            # fused masked add + invalid-face zeroing (mask+select idiom —
-            # misaligned-slab .at updates are ~3x slower on TPU, see
-            # ops/stencil.py::interior_add)
+            # fused masked add + invalid-face zeroing (mask+select idiom,
+            # see ops/stencil.py::interior_set)
             Vx = interior_set(
                 Vx,
                 jnp.where(
@@ -426,86 +320,18 @@ def _solve_vep_3d(
 
     _CORE = ("V", "P", "theta", "tau_c", "tau_e", "eta", "lam", "lam_e")
 
-    if use_pallas:
-        fs = flow_bc.free_slip
-        if hasattr(geometry, "di_center"):
-            raise ValueError("use_pallas requires a uniform grid")
-        if phi is not None:
-            raise ValueError("use_pallas does not support variational phi")
-        if not all((fs.left, fs.right, fs.top, fs.bot, fs.front, fs.back)) \
-                or flow_bc.no_slip.any():
-            raise ValueError("use_pallas supports all-free-slip BCs only")
-        from justrelax_tpu.ops.stokes3d_vep_canvas import (
-            pack_vep_carry,
-            unpack_vep_carry,
-            vep3d_canvas_consts,
-            vep3d_chunk_canvas,
-        )
-
-        blocked = use_pallas == "blocked"
-        edges = use_pallas == "edges"
-        edges_split = use_pallas == "edges_split"
-        scalar_consts = blocked or edges or edges_split
-        co_canvas = vep3d_canvas_consts(
-            material, tau_o_c6, tau_o_e3, EII_pl, P0, Q,
-            phase_ratios_center, phase_ratios_edges, T=T,
-            visc_m=pallas_visc_m,
-            hoist_tau_o=edges_split or not scalar_consts,
-            scalar_plastic=scalar_consts,
-            scalar_K=scalar_consts,
-        )
-        if blocked:
-            from justrelax_tpu.ops.pallas_stokes3d_vep_blocked import (
-                stokes3d_vep_chunk_blocked,
-            )
-
     def one_iteration_core(i, t):
         # reduced fori carry — diagnostics are write-only per iteration
-        # (see solvers/stokes2d_vep.py; measured 1.48x there)
+        # (see solvers/stokes2d_vep.py)
         c = _core_template._replace(**dict(zip(_CORE, t)))
         c2 = one_iteration(i, c)
         return tuple(getattr(c2, k) for k in _CORE)
 
     def body(c: C):
-        if use_pallas:
-            # stream nout-1 iterations through the collocated-canvas chunk
-            # (ops/stokes3d_vep_canvas.py; == serial composition to 5e-13,
-            # tests/test_vep3d_canvas.py), then one full serial iteration
-            # for the diagnostics — the lean-carry pattern
-            packed = pack_vep_carry(*(getattr(c, k) for k in _CORE))
-            if blocked:
-                out = stokes3d_vep_chunk_blocked(
-                    packed, co_canvas, inv_di, nout_i - 1,
-                    dt=dt, r=r, theta_dtau=theta_dtau, etadtau=etadtau,
-                    lambda_relaxation=lambda_relaxation,
-                    viscosity_relaxation=viscosity_relaxation,
-                    viscosity_cutoff=viscosity_cutoff,
-                    interpret=jax.default_backend() != "tpu",
-                )
-            elif edges or edges_split:
-                out = vep3d_chunk_canvas(
-                    packed, co_canvas, material, inv_di, nout_i - 1,
-                    dt=dt, r=r, theta_dtau=theta_dtau, etadtau=etadtau,
-                    lambda_relaxation=lambda_relaxation,
-                    viscosity_relaxation=viscosity_relaxation,
-                    viscosity_cutoff=viscosity_cutoff,
-                    edges_pallas="split" if edges_split else True,
-                    edges_interpret=jax.default_backend() != "tpu",
-                )
-            else:
-                out = vep3d_chunk_canvas(
-                    packed, co_canvas, material, inv_di, nout_i - 1,
-                    dt=dt, r=r, theta_dtau=theta_dtau, etadtau=etadtau,
-                    lambda_relaxation=lambda_relaxation,
-                    viscosity_relaxation=viscosity_relaxation,
-                    viscosity_cutoff=viscosity_cutoff,
-                )
-            t = unpack_vep_carry(out)
-        else:
-            t = lax.fori_loop(
-                0, nout_i - 1, one_iteration_core,
-                tuple(getattr(c, k) for k in _CORE),
-            )
+        t = lax.fori_loop(
+            0, nout_i - 1, one_iteration_core,
+            tuple(getattr(c, k) for k in _CORE),
+        )
         c = one_iteration(0, c._replace(**dict(zip(_CORE, t))))
         nRx, nRy, nRz, nRP, _, _, _ = residual_norms(c)
         err = jnp.max(jnp.stack([nRx, nRy, nRz, nRP]))

@@ -1,6 +1,6 @@
 """Pseudo-transient thermal diffusion solver.
 
-TPU-native re-design of the reference driver
+Re-design of the reference solve routine
 (/root/reference/src/thermal_diffusion/DiffusionPT_solver.jl:34-319). The PT
 iteration runs entirely on device as a ``lax.while_loop`` whose body executes
 ``nout`` fused flux/update/BC sweeps via ``lax.fori_loop`` and then evaluates
@@ -72,7 +72,6 @@ def _solve_loop(
     max_chunks,
     halo_exchange,
     reduce_norm,
-    use_pallas=False,
 ):
     ni = H.shape
     inv_sqrt_n = 1.0 / math.sqrt(float(jnp.size(H)))
@@ -106,36 +105,17 @@ def _solve_loop(
         return (c.err > eps) & (c.chunk < max_chunks)
 
     def body(c: _Carry):
-        if use_pallas:
-            from justrelax_tpu.ops.pallas_thermal import thermal_chunk_vmem
+        def one_iteration_core(i, tq):
+            # q2 (the un-relaxed physical flux) is only read by the
+            # chunk-end residual; keep it out of the fori carry (XLA
+            # then also elides its computation in-loop) and produce it
+            # with one full final iteration — same pattern as
+            # solvers/stokes2d_vep.py
+            T2, q2_, _ = one_iteration(i, (tq[0], tq[1], c.q2))
+            return (T2, q2_)
 
-            H_tot = H + shear_heating
-            if material is not None:
-                from justrelax_tpu.rheology import materials as mat
-
-                H_tot = H_tot + mat.compute_radioactive_heating(
-                    material, phase_ratios
-                )
-            T, qx, qy = thermal_chunk_vmem(
-                c.T, c.q[0], c.q[1], Told, K, rho_Cp, H_tot, dtau_rho,
-                theta_r_dtau, inv_dt, inv_flux_di[0], inv_flux_di[1], bcs,
-                adiabatic=adiabatic, nout=nout - 1,
-                interpret=jax.default_backend() != "tpu",
-            )
-            # last iteration on the XLA path refreshes q2 for the residual
-            T, q, q2 = one_iteration(0, (T, (qx, qy), c.q2))
-        else:
-            def one_iteration_core(i, tq):
-                # q2 (the un-relaxed physical flux) is only read by the
-                # chunk-end residual; keep it out of the fori carry (XLA
-                # then also elides its computation in-loop) and produce it
-                # with one full final iteration — same pattern as
-                # solvers/stokes2d_vep.py (1.48x there)
-                T2, q2_, _ = one_iteration(i, (tq[0], tq[1], c.q2))
-                return (T2, q2_)
-
-            T, q = lax.fori_loop(0, nout - 1, one_iteration_core, (c.T, c.q))
-            T, q, q2 = one_iteration(0, (T, q, c.q2))
+        T, q = lax.fori_loop(0, nout - 1, one_iteration_core, (c.T, c.q))
+        T, q, q2 = one_iteration(0, (T, q, c.q2))
         res = kernels.check_res(
             T, Told, q2, H, shear_heating, inv_dt, inv_div_di, **cell_kwargs
         )
@@ -168,7 +148,6 @@ def _solve_loop(
         "nout",
         "halo_exchange",
         "reduce_norm",
-        "use_pallas",
     ),
 )
 def heatdiffusion_PT(
@@ -188,7 +167,6 @@ def heatdiffusion_PT(
     nout: int = 1_000,
     halo_exchange=None,
     reduce_norm=None,
-    use_pallas: bool = False,
 ) -> Tuple[ThermalState, ThermalSolveInfo]:
     """Solve one implicit timestep of the heat equation with PT iterations.
 
@@ -200,21 +178,6 @@ def heatdiffusion_PT(
     a :class:`ThermalSolveInfo`.
     """
     ndim = thermal.T.ndim
-    if use_pallas:
-        from justrelax_tpu.ops.pallas_thermal import thermal_chunk_supported
-
-        if (
-            ndim != 2 or K is None or rho_Cp is None
-            or material is not None or dirichlet is not None
-            or halo_exchange is not None
-            or hasattr(geometry, "inv_flux_di")
-            or not thermal_chunk_supported(thermal_bc)
-        ):
-            raise ValueError(
-                "use_pallas requires the 2D uniform-grid K/rho_Cp path "
-                "without Dirichlet masks, adiabatic terms, halo exchange, "
-                "constant-flux or periodic BCs"
-            )
     if hasattr(geometry, "inv_flux_di"):  # nonuniform vector-spacing grid
         inv_flux_di = tuple(jnp.asarray(a) for a in geometry.inv_flux_di)
         inv_div_di = tuple(jnp.asarray(a) for a in geometry.inv_div_di)
@@ -254,7 +217,6 @@ def heatdiffusion_PT(
         max_chunks,
         halo_exchange,
         reduce_norm,
-        use_pallas=use_pallas,
     )
 
     res = kernels.check_res(

@@ -9,7 +9,7 @@ DiffusionExplicit.jl:198-360), the optional first-order upwind advection term
 built from cell-centered velocities (DiffusionExplicit.jl:306-326), and the
 1D accelerated-PT diffusion solver (DiffusionExplicit.jl:56-163).
 
-TPU-native re-design notes:
+JAX-native re-design notes:
 
 - the reference computes fluxes between interior nodes only and leaves the
   boundary rows to ``thermal_bcs!``; here fluxes are vectorized slices of the

@@ -3,8 +3,8 @@
 The reference's observability layer is minimal (SURVEY §5): ``@elapsed``
 wall-clock accumulation in the solvers (Stokes2D.jl:66), residual histories,
 NaN aborts (``isnan(err) && error("NaN(s)")``, Stokes2D.jl:144), and a
-``versioninfo()`` runtime report (JustRelax.jl:87-165). This module is the
-TPU-first upgrade: ``jax.profiler`` trace capture, the per-kernel effective
+``versioninfo()`` runtime report (JustRelax.jl:87-165). This module adds
+``jax.profiler`` trace capture, the per-kernel effective
 memory bandwidth (T_eff) figure of merit the APT method is judged by
 (Räss et al. 2022), and equivalent NaN/divergence guards that work with
 device-resident solves.
@@ -35,7 +35,7 @@ __all__ = [
 @contextlib.contextmanager
 def trace(logdir: str):
     """Capture a ``jax.profiler`` trace for the enclosed block (view with
-    TensorBoard / xprof). The TPU analogue of NVTX ranges."""
+    TensorBoard / xprof)."""
     jax.profiler.start_trace(logdir)
     try:
         yield
@@ -72,7 +72,8 @@ def solve_report(
     hbm_peak_gbs: Optional[float] = None,
 ) -> Dict[str, float]:
     """Summarize a solve: iterations, final residual, grid-updates/s, T_eff
-    (and fraction of HBM speed-of-light if ``hbm_peak_gbs`` is given)."""
+    (and fraction of the memory-bandwidth peak if ``hbm_peak_gbs`` is
+    given)."""
     iters = int(info.iters)
     n = 1
     for d in ni:

@@ -1,10 +1,9 @@
-"""Regenerate the frozen CPU/f64 physics oracles used by bench.py's
-on-chip golden tier (VERDICT r04 weak #7: the chip goldens must also carry
-an ABSOLUTE physics value, not only Pallas-vs-XLA path equivalence).
+"""Regenerate the frozen CPU/f64 physics oracles of the golden solves
+(justrelax_tpu/utils/goldens.py) that the reference has no oracle for.
 
 Run on CPU:  JAX_PLATFORMS=cpu python scripts/make_f64_goldens.py
-Values are frozen into bench.py golden thunks with a 2e-2 f32-hardware
-relative tolerance.
+The printed values are frozen into utils/goldens.py, where f64 runs are held
+to them at 1e-4 relative and f32 runs at 2e-2 relative.
 """
 import math
 import sys

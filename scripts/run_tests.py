@@ -3,18 +3,21 @@ reference's ParallelTestRunner (test/runtests.jl:29-38).
 
 Why not one `pytest tests/`: a single 289-test process compiles thousands of
 XLA programs; one flaky XLA-CPU compiler segfault then kills the whole
-30-minute run (observed r03 at test 271). Here every test FILE runs in its
+30-minute run (observed once at test 271). Here every test FILE runs in its
 own subprocess, so a crash costs one file, is reported as such, and is
-retried once solo (the r03 segfault passed cleanly on retry).
+retried once solo (that segfault passed cleanly on retry).
 
 Usage:
     python scripts/run_tests.py            # all tests/test_*.py, 2 workers
     python scripts/run_tests.py -j 4       # 4 parallel workers
-    python scripts/run_tests.py -k pallas  # only files whose name matches
+    python scripts/run_tests.py -k vep3d   # only files whose name matches
 
-Workers default to 2: the interpret-mode Pallas tests and the 8-device
-virtual-mesh tests are CPU-hungry, and oversubscription inflates the wall
-clock badly (r03 note: 31 min solo → >2 h under contention).
+Workers default to 2: the 8-device virtual-mesh tests are CPU-hungry, and
+oversubscription inflates the wall clock badly.
+
+The test processes run on the CPU only (tests/conftest.py forces
+``JAX_PLATFORMS=cpu``); this runner never starts processes on a GPU, where
+one JAX process per card is the rule.
 """
 
 from __future__ import annotations

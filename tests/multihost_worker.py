@@ -4,7 +4,9 @@ tier, test/runtests.jl:48-89). Spawned as:
 
     python multihost_worker.py <process_id> <out.npz> <coordinator_port>
 
-Process 0 writes the gathered global fields to <out.npz>.
+Process 0 writes the gathered global fields to <out.npz>. Each worker runs
+on the CPU only (``JAX_PLATFORMS=cpu``, four virtual devices); nothing here
+opens a GPU.
 """
 
 import os

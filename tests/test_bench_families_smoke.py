@@ -1,11 +1,10 @@
 """Smoke test: every bench family in utils/bench_kernels.py::FAMILIES must
-*instantiate* and *trace* at a tiny grid (ADVICE r04: the registered
-``pallas_vep3d_blocked`` family shipped with stale kwargs and raised
-TypeError on first step — unrunnable as committed, and nothing caught it).
+*instantiate* and *trace* at a tiny grid, so a family registered with stale
+kwargs is caught before a device run.
 
-`jax.eval_shape` traces the step (catching signature drift, shape
-mismatches, and Pallas BlockSpec inconsistencies at trace time) without
-lowering to TPU, so this runs on the CPU suite.
+`jax.eval_shape` traces the step (catching signature drift and shape
+mismatches at trace time) without compiling it, so this runs on the CPU
+suite.
 """
 
 import jax
@@ -14,32 +13,16 @@ import pytest
 
 from justrelax_tpu.utils import bench_kernels as bk
 
-# Per-family tiny-but-valid sizes. Blocked kernels need enough planes for
-# >= 2 blocks with halo H = 3k per side (choose_blocking constraints), so
-# their minimum n is larger.
+# Per-family tiny-but-valid sizes.
 SMOKE_KWARGS = {
     "ve2d": dict(nx=32, ny=32),
     "vep2d": dict(n=32),
-    "vep2d_1024": dict(),
     "thermal2d": dict(nx=32, ny=32),
     "thermal3d": dict(n=16),
     "ve3d": dict(n=16),
     "ve3d_canvas": dict(n=16),
     "vep3d": dict(n=16),
     "vep3d_canvas": dict(n=16),
-    "pallas_ve2d": dict(n=62),
-    "pallas_ve2d_blocked": dict(n=128),
-    "pallas_ve3d_blocked": dict(n=30),
-    "pallas_vep2d": dict(n=62),
-    "pallas_vep2d_blocked": dict(n=128),
-    "pallas_thermal2d": dict(n=62),
-    "pallas_vep3d_blocked": dict(n=30),
-    "pallas_vep3d_edges": dict(n=16),
-    # fixed-size past-VMEM families: trace at the real (254^3) shape —
-    # eval_shape is cheap, only the factory's CPU array build costs time
-    "ve3d_254": dict(),
-    "ve3d_canvas_254": dict(),
-    "pallas_ve3d_blocked_254": dict(),
 }
 
 

@@ -1,5 +1,5 @@
 """Distributed solver vs serial: bit-comparable results on the same global grid
-(the TPU analogue of the reference's *_MPI.jl gather-and-compare tests)."""
+(the JAX analogue of the reference's *_MPI.jl gather-and-compare tests)."""
 
 import math
 

@@ -28,7 +28,7 @@ def test_effective_bandwidth():
 
 def test_solve_report():
     info = _FakeInfo(1000, 1.0e-9)
-    r = solve_report(info, (256, 256), wall_s=0.5, hbm_peak_gbs=819.0)
+    r = solve_report(info, (256, 256), wall_s=0.5, hbm_peak_gbs=1000.0)
     assert r["iters"] == 1000
     np.testing.assert_allclose(r["gups"], 256 * 256 * 1000 / 0.5 / 1e9)
     np.testing.assert_allclose(

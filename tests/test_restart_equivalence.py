@@ -9,9 +9,8 @@ fresh containers, and continued produces bit-identical state to never
 stopping — i.e. the checkpoint captures ALL cross-timestep solver state
 (τ_o memory for the Maxwell element, pressure, velocities).
 
-Also covers f32 solver behavior (VERDICT round-1: "f32 tolerance behavior
-untested"): the same PT loop in float32 converges to f32-appropriate
-residuals and tracks the analytic Maxwell curve.
+Also covers f32 solver behavior: the same PT loop in float32 converges to
+f32-appropriate residuals and tracks the analytic Maxwell curve.
 """
 
 import math

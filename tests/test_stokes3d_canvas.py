@@ -1,7 +1,7 @@
 """Collocated-canvas 3D iteration (XLA roll+mask) == serial op composition.
 
-The canvas formulation (ops/stokes3d_canvas.py) exists for TPU fusion
-quality; its correctness oracle is the production slice/pad kernel chain
+The canvas formulation (ops/stokes3d_canvas.py) is a fusion-layout
+alternative; its correctness oracle is the production slice/pad kernel chain
 (`_serial_iteration` below).
 """
 
@@ -236,10 +236,14 @@ def test_shift_impl_slice_bitwise_equal_roll():
 
 
 def test_solver_lean_auto_dispatch_matches():
-    """solve_ve_3d(use_pallas=True) auto-enables the lean-consts chunk when
-    G/K/dt are statically inf; results match the precomputed-coefficient
-    canvas path and the XLA path at roundoff."""
+    """The lean-consts and precomputed-coefficient canvas chunks, called
+    directly with the solver's pressure convention (ψ from η), reproduce
+    one ``solve_ve_3d`` chunk of exactly 100 XLA iterations at roundoff."""
     from justrelax_tpu.core.state import StokesState
+    from justrelax_tpu.ops.stokes3d_canvas import (
+        lean_canvas_consts,
+        stokes3d_chunk_canvas_lean,
+    )
     from justrelax_tpu.solvers.stokes3d import solve_ve_3d
 
     ni = (16, 16, 16)
@@ -257,11 +261,25 @@ def test_solver_lean_auto_dispatch_matches():
     st = st.replace(viscosity=st.viscosity.replace(eta=eta))
     G = jnp.full(ni, jnp.inf)
     K = jnp.full(ni, jnp.inf)
-    args = (st, pt, geometry, bc, (Z, Z, fz), G, K, jnp.inf)
-    kw = dict(iter_max=400, nout=100)
-    out_lean, _ = solve_ve_3d(*args, use_pallas=True, **kw)
-    out_pre, _ = solve_ve_3d(*args, use_pallas=True, pallas_lean=False, **kw)
-    out_xla, _ = solve_ve_3d(*args, **kw)
-    assert float(jnp.abs(out_lean.V.Vz - out_pre.V.Vz).max()) < 1e-14
-    assert float(jnp.abs(out_lean.V.Vz - out_xla.V.Vz).max()) < 1e-12
-    assert float(jnp.abs(out_lean.P - out_xla.P).max()) < 1e-12
+    out_xla, info = solve_ve_3d(st, pt, geometry, bc, (Z, Z, fz), G, K,
+                                jnp.inf, iter_max=100, nout=100)
+    assert int(info.iters) == 100
+
+    r, theta_dtau, etadtau = (
+        float(pt.r), float(pt.theta_dtau), float(pt.etadtau))
+    inv_di = tuple(1.0 / d for d in geometry.di)
+    eta_tau = maxloc(eta, window=1)
+    t = st.tau
+    carry = tuple(pack_carry(st.V.Vx, st.V.Vy, st.V.Vz, st.P,
+                             t.xx, t.yy, t.zz, t.yz, t.xz, t.xy))
+    co = ve3d_canvas_coefficients(eta, eta_tau, r, theta_dtau, etadtau,
+                                  fx=Z, fy=Z, fz=fz, psi_eta=eta)
+    out_pre = unpack_carry(
+        jnp.stack(stokes3d_chunk_canvas(carry, co, inv_di, 100)), *ni)
+    lc = lean_canvas_consts(eta, eta_tau, fz=fz)
+    out_lean = unpack_carry(jnp.stack(stokes3d_chunk_canvas_lean(
+        carry, lc, r, theta_dtau, etadtau, inv_di, 100,
+        psi_from_eta=True)), *ni)
+    assert float(jnp.abs(out_lean[2] - out_pre[2]).max()) < 1e-14
+    assert float(jnp.abs(out_lean[2] - out_xla.V.Vz).max()) < 1e-12
+    assert float(jnp.abs(out_lean[3] - out_xla.P).max()) < 1e-12

@@ -225,11 +225,10 @@ def test_vep3d_canvas_shift_slice_bitwise_equal_roll():
 
 
 def test_solve_vep_3d_use_pallas_matches_xla():
-    """solve_vep_3d(use_pallas=True) — chunks streamed through the canvas
-    iteration, one serial iteration per chunk for diagnostics — matches the
-    XLA path at roundoff on a two-phase plastic shear config."""
+    """The collocated-canvas chunk, called directly, reproduces one
+    ``solve_vep_3d`` chunk of exactly 100 XLA iterations at roundoff on a
+    two-phase plastic shear config."""
     from justrelax_tpu.core.state import StokesState
-    from justrelax_tpu.ops.bc import flow_bcs
     from justrelax_tpu.solvers.stokes3d_vep import solve_vep_3d
 
     n = 10
@@ -249,6 +248,7 @@ def test_solve_vep_3d_use_pallas_matches_xla():
         + (np.asarray(Z) - 0.5) ** 2
     ) < 0.15**2
     pr = phase_ratios_from_field(jnp.asarray(sph.astype(int)), 2)
+    pr_e = (pr.edge_yz, pr.edge_xz, pr.edge_xy)
     stokes = StokesState.make(ni)
     stokes = stokes.replace(
         viscosity=stokes.viscosity.replace(eta=jnp.ones(ni)))
@@ -265,29 +265,37 @@ def test_solve_vep_3d_use_pallas_matches_xla():
     pt = PTStokesCoeffs.make(
         geometry.li, geometry.di, eps_rel=1.0e-6, eps_abs=1.0e-6,
         CFL=0.75 / math.sqrt(3.1))
-    args = (stokes, pt, geometry, bc, mat, pr.center,
-            (pr.edge_yz, pr.edge_xz, pr.edge_xy), 0.25)
-    kw = dict(iter_max=3000, iter_min=100, nout=100)
-    # use_pallas=True now auto-dispatches the r05 HYBRID (Pallas edge
-    # passes, interpret mode on CPU) under the phase-uniform guard
-    out_c, info_c = solve_vep_3d(*args, use_pallas=True, **kw)
-    out_x, info_x = solve_vep_3d(*args, **kw)
-    assert float(info_c.err) < 1.0e-5 and float(info_x.err) < 1.0e-5
+    dt = 0.25
+    out_x, info_x = solve_vep_3d(
+        stokes, pt, geometry, bc, mat, pr.center, pr_e, dt,
+        iter_max=100, iter_min=100, nout=100)
+    assert int(info_x.iters) == 100
+
+    t, to = stokes.tau, stokes.tau_o
+    co = vep3d_canvas_consts(
+        mat, (to.xx, to.yy, to.zz, to.yz_c, to.xz_c, to.xy_c),
+        (to.yz, to.xz, to.xy), stokes.EII_pl, stokes.P, stokes.Q,
+        pr.center, pr_e,
+    )
+    zeros_e = tuple(jnp.zeros_like(e) for e in (t.yz, t.xz, t.xy))
+    carry = pack_vep_carry(
+        (Vx, Vy, Vz), stokes.P, stokes.P,
+        (t.xx, t.yy, t.zz, t.yz_c, t.xz_c, t.xy_c), (t.yz, t.xz, t.xy),
+        stokes.viscosity.eta, jnp.zeros(ni), zeros_e,
+    )
+    inv_di = tuple(1.0 / d for d in geometry.di)
+    got = _unpack(vep3d_chunk_canvas(
+        carry, co, mat, inv_di, 100,
+        dt=dt, r=pt.r, theta_dtau=pt.theta_dtau, etadtau=pt.etadtau,
+        lambda_relaxation=REL_LAM, viscosity_relaxation=VISC_REL,
+    ))
     scale = float(jnp.abs(out_x.tau.II).max())
-    assert float(jnp.abs(out_c.tau.II - out_x.tau.II).max()) < 1e-8 * scale
-    assert float(jnp.abs(out_c.P - out_x.P).max()) < 1e-8 * scale
+    tx = out_x.tau
+    want = dict(
+        V=(out_x.V.Vx, out_x.V.Vy, out_x.V.Vz), P=out_x.P,
+        tau_c=(tx.xx, tx.yy, tx.zz), tau_e=(tx.yz, tx.xz, tx.xy),
+        eta=out_x.viscosity.eta,
+    )
+    got["tau_c"] = got["tau_c"][:3]
+    _assert_state_close(want, {k: got[k] for k in want}, atol=1e-8 * scale)
     assert float(jnp.max(out_x.EII_pl)) > 0.0  # plasticity active
-
-    # the plain collocated-canvas chunk stays reachable as "canvas"
-    out_v, info_v = solve_vep_3d(*args, use_pallas="canvas", **kw)
-    assert float(info_v.err) < 1.0e-5
-    assert float(jnp.abs(out_v.tau.II - out_x.tau.II).max()) < 1e-8 * scale
-
-    # use_pallas="blocked": the grid-blocked streaming kernel
-    # (ops/pallas_stokes3d_vep_blocked.py, interpret mode on CPU) through
-    # the same solver entry — scalar-plastic/scalar-K consts + in-VMEM
-    # tau_o re-derivation must reproduce the XLA solve at roundoff
-    out_b, info_b = solve_vep_3d(*args, use_pallas="blocked", **kw)
-    assert float(info_b.err) < 1.0e-5
-    assert float(jnp.abs(out_b.tau.II - out_x.tau.II).max()) < 1e-8 * scale
-    assert float(jnp.abs(out_b.P - out_x.P).max()) < 1e-8 * scale
